@@ -1,6 +1,6 @@
-"""Batch compression of many independent buffers — the TPU-shaped entry
-point (reference examples/batch.rs). On a multi-chip mesh, use
-libdeflate_rsx_tpu.parallel.ShardedCompressor to spread blocks over chips."""
+"""Batch compression of many independent buffers — the device-offload
+entry point (reference examples/batch.rs). On a multi-GPU mesh, use
+libdeflate_rsx_tpu.parallel.ShardedCompressor to spread blocks over cards."""
 
 import os
 import sys

@@ -1,14 +1,14 @@
 """The device encoder tiers and the Pallas batch decoder.
 
-Three TPU compression tiers (pick by batch level):
+Three device compression tiers (pick by batch level):
   level 0    -> stored blocks        (models/stored.py)
   levels 1-3 -> static Huffman       (models/greedy_static.py)
   levels 4-9 -> dynamic Huffman      (models/greedy_dynamic.py)
-and the device batch decoder (ops/pallas/inflate_v2.py via
+and the device batch decoder (ops/pallas/inflate_tokens.py via
 BatchDecompressor(use_device=True)).
 
-Runs on a real TPU, or on CPU:
-  JAX_PLATFORMS=cpu python examples/device_tiers.py
+Runs on a CUDA GPU (the batch decoder's kernel is compiled for it):
+  python examples/device_tiers.py
 """
 
 import os
@@ -40,7 +40,7 @@ bc = BatchCompressor(level=6, format="gzip", use_device=True)
 frames = bc.compress_batch([text, text[::-1]])
 print(f"batch gzip: {[len(f) for f in frames]} bytes")
 
-# device batch decode (raw DEFLATE payloads <= 64 KiB per stream)
+# device batch decode (raw DEFLATE payloads)
 chunks = [text[i:i + 65536 - 1024] for i in range(0, len(text), 65536)][:4]
 comps = [zlib.compress(c, 6)[2:-4] for c in chunks]
 bd = BatchDecompressor(use_device=True)

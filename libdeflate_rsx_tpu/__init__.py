@@ -1,12 +1,13 @@
-"""libdeflate_rsx_tpu — a TPU-native DEFLATE / zlib / gzip codec framework.
+"""libdeflate_rsx_tpu — a DEFLATE / zlib / gzip codec framework in JAX.
 
 Brand-new JAX/XLA/Pallas implementation with the capabilities of the
 reference Rust library 404Setup/libdeflate-rsx (see SURVEY.md): one-shot and
 streaming compression at levels 0..=12, table-driven resumable
 decompression, zlib/gzip framing with CRC-32/Adler-32, batch APIs with
 per-item fault isolation, zip-bomb and overlap guards — with the compute
-path re-designed TPU-first: MXU matmul checksums, block-parallel encoders,
-and `shard_map` data parallelism over device meshes.
+path re-designed for accelerators: matmul checksums, block-parallel
+encoders, a Pallas GPU batch decoder, and `shard_map` data parallelism
+over device meshes.
 
 Public surface (parity with reference src/lib.rs re-exports):
   Compressor, Decompressor, crc32, adler32, plus batch/stream/parallel
@@ -37,14 +38,9 @@ __version__ = "0.1.0"
 # is its OnceLock-cached function pointers, reference src/crc32/mod.rs:
 # 332-365)
 def _bind_checksums():
-    try:
-        from .native import get_ext
-        ext = get_ext()
-        if ext is not None:
-            return ext.crc32, ext.adler32
-    except Exception:
-        pass
-    return None, None
+    from .native import get_ext
+    ext = get_ext()
+    return ext.crc32, ext.adler32
 
 
 _ext_crc32, _ext_adler32 = _bind_checksums()

@@ -6,7 +6,7 @@ levels 0..=12 and allocating + `_into` variants for deflate/zlib/gzip;
 `set_limit_ratio`, default ratio 2000:1 + 4096 slack) and overlap rejection;
 `*_compress_bound` functions.
 
-The host engine backs these one-shot calls; the TPU batch path (batch.py,
+The host engine backs these one-shot calls; the device batch path (batch.py,
 models/) is the throughput-oriented entry and shares this framing layer.
 """
 

@@ -1,6 +1,6 @@
 """DEFLATE / zlib / gzip format constants (RFC 1951/1950/1952).
 
-This is the TPU-native analog of the reference's format-constant module
+This is the analog of the reference's format-constant module
 (cf. reference src/common.rs:1-75): symbol counts, the 32 KiB LZ window,
 length/offset code tables, and the block-splitting tunables. All values
 here are dictated by the public RFCs; the tunables mirror the reference's
@@ -48,7 +48,7 @@ SEQ_STORE_LENGTH = 50000
 
 # Intra-buffer parallel chunking threshold/granule (reference
 # src/compress/mod.rs:699-772 uses 256 KiB rayon chunks; we use the same
-# granule as the per-device / per-grid-cell shard unit on TPU).
+# granule as the per-device shard unit).
 PARALLEL_CHUNK_SIZE = 256 * 1024
 
 # ---------------------------------------------------------------------------
@@ -103,7 +103,7 @@ def offset_to_symbol_table() -> np.ndarray:
 
 OFFSET_TO_SYMBOL = offset_to_symbol_table()
 
-# offset -> symbol via bit-length math (used by vectorized TPU paths to avoid
+# offset -> symbol via bit-length math (used by vectorized device paths to avoid
 # a 32769-entry gather): for offset o, sym = 2*(bsr(o-1)) adjusted; we keep the
 # dense table for host code and compute log2-based form in ops/.
 

@@ -75,10 +75,9 @@ class Deflater:
             res = native_deflate_bits(data, self._level, mode,
                                       self._history, self._nbits)
         if res is None:
-            # portable/level-0 fallback: byte-aligned join (SYNC) —
-            # decoded bytes identical, stream marginally larger. The
-            # fallback is chosen from the first call on (native never
-            # available, or level 0), so no bit-phase can be pending.
+            # portable level-0 path: byte-aligned join (SYNC) — decoded
+            # bytes identical, stream marginally larger. Level 0 takes
+            # it from the first call on, so no bit-phase can be pending.
             assert self._nbits == 0
             out = compress_raw(data, self._level,
                                Flush.FINISH if flush == Flush.FINISH

@@ -1,11 +1,11 @@
-"""TPU dynamic-Huffman encoder tier: greedy parse + per-block code tables.
+"""Device dynamic-Huffman encoder tier: greedy parse + per-block code tables.
 
 The ratio tier of the device encoder family (the reference's dynamic
 blocks, reference src/compress/mod.rs:1775-1883): the same sort-based
 match pipeline as the static tier, plus per-block symbol histograms on
 device, package-merge code construction + header serialization on the
 host (native dyn_tables_c; a few KB of histogram per block crosses the
-link), and table-coded emission through the shared MXU bit packer.
+link), and table-coded emission through the shared matmul bit packer.
 
 Blocks where the dynamic stream would expand past the stored cost fall
 back to stored blocks host-side, like the static tier.
@@ -217,9 +217,8 @@ def deflate_device_dynamic_many(datas: list[bytes],
     """Batched dynamic-tier encode of many independent buffers.
 
     All items' blocks ride ONE analyze launch, ONE histogram fetch, and
-    ONE emit launch (the round-2 review's pipelining item: per-item
-    host round trips over the dev link cost ~26 ms latency each; one
-    batched fetch amortizes it across the whole batch). Per-item
+    ONE emit launch: one batched histogram fetch instead of a host
+    round trip per item. Per-item
     outputs are reassembled in order.
     """
     import jax.numpy as jnp

@@ -1,8 +1,8 @@
-"""TPU level-1 encoder: greedy parse + static Huffman, gather/scatter-free.
+"""Device level-1 encoder: greedy parse + static Huffman, gather/scatter-free.
 
 Flagship device model (v3 pipeline, ops/encode_v2.py): sort-based
 matchfinding, run-merge extension, scan+lean-walk greedy token selection,
-closed-form static codes, MXU one-hot word packing. Blocks are independent
+closed-form static codes, matmul one-hot word packing. Blocks are independent
 (the reference's intra-buffer chunk parallelism, reference
 src/compress/mod.rs:699-772) and joined byte-aligned via SYNC markers, so
 block streams concatenate into one valid DEFLATE stream; batches of blocks
@@ -112,9 +112,9 @@ def deflate_device_static(data: bytes,
     # blocks whose outputs are dropped at assembly
     from ..ops.encode_v2 import jit_encoder_scan
 
-    # unroll=4 measured fastest (0.4-0.5 GB/s vs 0.38 at 8): enough
-    # independent subgraphs to hide each chunk's sort/scan dependency
-    # chain without starving the scheduler
+    # unroll=4: enough independent subgraphs to hide each chunk's
+    # sort/scan dependency chain without starving the scheduler (not
+    # yet re-tuned on the GPU)
     unroll = 4
     per_launch = unroll * launch_rows
     k = -(-num // per_launch)

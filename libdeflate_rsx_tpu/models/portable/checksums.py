@@ -4,7 +4,7 @@ The analog of the reference's scalar/SIMD checksum tiers (reference
 src/crc32/mod.rs slice-8, src/adler32/mod.rs chunked scalar): here the
 parallel axis is "many equal-length chunks processed in lockstep numpy
 lanes", folded with the associative combine operators from
-ops/checksum_math.py. The TPU MXU kernels live in ops/checksums.py.
+ops/checksum_math.py. The device matmul kernels live in ops/checksums.py.
 """
 
 from __future__ import annotations

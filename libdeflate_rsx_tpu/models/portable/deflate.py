@@ -6,10 +6,10 @@ level 1 single-probe hash-table greedy, levels 2-4 hash-chain greedy,
 levels 5-9 lazy parsing, levels 10-12 two-pass near-optimal DP parsing —
 with per-block stored/static/dynamic type selection by exact bit cost.
 
-Architecture differences from the reference (deliberate, TPU-first):
+Architecture differences from the reference (deliberate, device-first):
  - Emission is two-phase everywhere: parsing produces token arrays
    (value, nbits), and a single vectorized numpy scan+scatter packer
-   assembles the bitstream. This is the same algorithm the TPU bit-packer
+   assembles the bitstream. This is the same algorithm the device bit-packer
    uses (ops/encode_v2.py), so host and device share one emission model
    instead of the reference's speculative 64-bit bitbuffer writer
    (reference src/compress/bitstream.rs).
@@ -89,7 +89,7 @@ class TokenStream:
     Tracks the running bit count so stored blocks can compute their byte
     alignment padding exactly. The packer writes each token's shifted value
     into 8 byte planes with scatter-add; token bit ranges are disjoint so
-    add == or. The TPU packer (ops/encode_v2.py) uses the same scheme.
+    add == or. The device packer (ops/encode_v2.py) uses the same scheme.
     """
 
     def __init__(self, start_bits: int = 0) -> None:

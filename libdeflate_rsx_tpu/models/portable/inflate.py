@@ -5,7 +5,7 @@ the reference's portable decompressor state machine (reference
 src/decompress/mod.rs:213-353 states Start/BlockHeader/DynamicHeader/
 BlockBody/BlockBodyOffset/UncompressedHeader/UncompressedBody/Done) and its
 table-driven Huffman decode (reference src/decompress/mod.rs:1324-1495).
-The TPU batch decode path (ops/ + models/) is validated against this engine
+The device batch decode path (ops/pallas/) is validated against this engine
 and against CPython's zlib.
 
 Design notes (deliberately not a translation):

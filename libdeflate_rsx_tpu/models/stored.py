@@ -1,4 +1,4 @@
-"""TPU level-0 encoder: stored (uncompressed) DEFLATE blocks.
+"""Device level-0 encoder: stored (uncompressed) DEFLATE blocks.
 
 The device analog of the reference's CUDA batch kernel, which emits only
 stored blocks one thread per stream (reference src/cuda/compress.cu:1-66,

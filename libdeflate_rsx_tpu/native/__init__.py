@@ -1,10 +1,11 @@
-"""Native host-runtime kernels (C, built on first use, ctypes-bound).
+"""Native host-runtime kernels (C, built on first use).
 
 The reference's host path is entirely native (Rust); this package holds
-the TPU build's native host components — currently the ragged row
-assembler that merges device-produced bit-aligned row buffers into final
-DEFLATE streams at memcpy speed. Falls back to pure numpy when no C
-compiler is available.
+the native host engine: the CPython extension `_codec` (pymod.c +
+codec.c, the fast call path) and the ctypes library `_native` (codec.c
++ assemble.c, the GIL-free entry points and the row assembler). Both are
+compiled from the committed sources on first use; a failed compile
+raises `NativeBuildError` with the compiler's stderr.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import ctypes
 import os
 import subprocess
 import sysconfig
+import tempfile
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SO = os.path.join(_HERE, "_native.so")
@@ -20,90 +22,73 @@ _SRCS = [os.path.join(_HERE, "assemble.c"),
          os.path.join(_HERE, "codec.c")]
 
 _lib = None
-_tried = False
 
 _EXT_SO = os.path.join(_HERE, "_codec.so")
 _EXT_SRCS = [os.path.join(_HERE, "pymod.c"),
              os.path.join(_HERE, "codec.c")]
 _ext = None
-_ext_tried = False
 
 
-def _build_ext() -> str | None:
+class NativeBuildError(RuntimeError):
+    """The C compiler failed on the native engine's sources."""
+
+
+def _compile(so: str, srcs: list[str], extra: list[str]) -> str:
+    """Build `so` from `srcs` unless it is newer than every source.
+
+    The object is compiled under a temporary name in the same directory
+    and moved into place with os.replace, so processes that build at
+    the same time never load a half-written file. -march=native mirrors
+    the reference's -C target-cpu=native (reference
+    .cargo/config.toml:1-2); it is dropped for compilers without it.
+    """
+    newest_src = max(os.path.getmtime(s) for s in srcs)
+    if os.path.exists(so) and os.path.getmtime(so) >= newest_src:
+        return so
     cc = os.environ.get("CC", "cc")
-    inc = sysconfig.get_paths()["include"]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(so))
+    os.close(fd)
     try:
-        newest_src = max(os.path.getmtime(s) for s in _EXT_SRCS)
-        if (not os.path.exists(_EXT_SO)
-                or os.path.getmtime(_EXT_SO) < newest_src):
-            base = [cc, "-O3", "-shared", "-fPIC", f"-I{inc}",
-                    "-o", _EXT_SO, *_EXT_SRCS]
+        errors = []
+        for march in (["-march=native"], []):
+            cmd = [cc, "-O3", *march, "-shared", "-fPIC", *extra,
+                   "-o", tmp, *srcs]
             try:
-                subprocess.run(base[:2] + ["-march=native"] + base[2:],
-                               check=True, capture_output=True)
-            except subprocess.CalledProcessError:
-                subprocess.run(base, check=True, capture_output=True)
-        return _EXT_SO
-    except (OSError, subprocess.CalledProcessError):
-        return None
+                r = subprocess.run(cmd, capture_output=True, text=True)
+            except OSError as e:
+                raise NativeBuildError(f"cannot run {cc!r}: {e}") from e
+            if r.returncode == 0:
+                os.replace(tmp, so)
+                return so
+            errors.append(f"$ {' '.join(cmd)}\n{r.stderr}")
+        raise NativeBuildError("native engine build failed:\n"
+                               + "\n".join(errors))
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
 
 
 def get_ext():
-    """The CPython extension module (fast call path), or None."""
-    global _ext, _ext_tried
-    if _ext_tried:
-        return _ext
-    _ext_tried = True
-    so = _build_ext()
-    if so is None:
-        return None
-    try:
+    """The CPython extension module (fast call path)."""
+    global _ext
+    if _ext is None:
         import importlib.machinery
         import importlib.util
+        so = _compile(_EXT_SO, _EXT_SRCS,
+                      [f"-I{sysconfig.get_paths()['include']}"])
         loader = importlib.machinery.ExtensionFileLoader("_codec", so)
         spec = importlib.util.spec_from_loader("_codec", loader)
         mod = importlib.util.module_from_spec(spec)
         loader.exec_module(mod)
         _ext = mod
-    except (ImportError, OSError):
-        _ext = None
     return _ext
 
 
-def _build() -> str | None:
-    cc = os.environ.get("CC", "cc")
-    try:
-        newest_src = max(os.path.getmtime(s) for s in _SRCS)
-        if (not os.path.exists(_SO)
-                or os.path.getmtime(_SO) < newest_src):
-            # -march=native mirrors the reference's -C target-cpu=native
-            # (reference .cargo/config.toml:1-2); the .so is built on the
-            # machine it runs on. Fall back for compilers without it.
-            try:
-                subprocess.run(
-                    [cc, "-O3", "-march=native", "-shared", "-fPIC",
-                     "-o", _SO, *_SRCS],
-                    check=True, capture_output=True)
-            except subprocess.CalledProcessError:
-                subprocess.run(
-                    [cc, "-O3", "-shared", "-fPIC", "-o", _SO, *_SRCS],
-                    check=True, capture_output=True)
-        return _SO
-    except (OSError, subprocess.CalledProcessError):
-        return None
-
-
 def get_lib():
-    """The loaded native library, or None (numpy fallback)."""
-    global _lib, _tried
-    if _tried:
-        return _lib
-    _tried = True
-    so = _build()
-    if so is None:
-        return None
-    try:
-        lib = ctypes.CDLL(so)
+    """The loaded ctypes library."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(_compile(_SO, _SRCS, []))
         # eager init while single-threaded (GIL held here; the hot
         # entry points are later called GIL-released from pool threads)
         lib.ldrsx_global_init.restype = None
@@ -147,8 +132,6 @@ def get_lib():
         ]
         lib.icx_step.restype = ctypes.c_int64
         _lib = lib
-    except OSError:
-        _lib = None
     return _lib
 
 
@@ -157,14 +140,12 @@ _HDR_CAP = 512
 
 def dyn_tables_native(ll_hist, of_hist, final: bool):
     """Histograms -> (ll_tab (288,) u32 `code|len<<16`, of_tab (30,) u32,
-    header bytes, header bits) via the C builder, or None when no native
-    library is available. Raises on Huffman build failure (histograms
-    from the device pipeline are always buildable)."""
+    header bytes, header bits) via the C builder. Raises on Huffman
+    build failure (histograms from the device pipeline are always
+    buildable)."""
     import numpy as np
 
     lib = get_lib()
-    if lib is None:
-        return None
     llf = np.ascontiguousarray(ll_hist, dtype=np.uint32)
     off = np.ascontiguousarray(of_hist[:30], dtype=np.uint32)
     ll_tab = np.zeros(288, np.uint32)
@@ -183,13 +164,12 @@ def assemble_rows_native(out, rows, byte_off, extent) -> bool:
 
     out: (B, out_cap) uint8 C-contiguous (modified in place);
     rows: (B, R, W) uint8; byte_off/extent: (B, R) int64.
-    Returns False if the native library is unavailable.
+    Returns False, and writes nothing, when `out` is not C-contiguous
+    uint8.
     """
     import numpy as np
 
     lib = get_lib()
-    if lib is None:
-        return False
     if not (out.flags["C_CONTIGUOUS"] and out.dtype == np.uint8):
         return False  # a copy would break the in-place contract
     rows_c = np.ascontiguousarray(rows, dtype=np.uint8)

@@ -1,4 +1,4 @@
-/* Ragged row placement for the TPU block encoder (host runtime).
+/* Ragged row placement for the device block encoder (host runtime).
  *
  * The device returns per-row bit-aligned byte buffers plus each row's
  * global byte offset; the final DEFLATE stream is their OR-merge

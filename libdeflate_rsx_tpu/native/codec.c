@@ -1333,7 +1333,7 @@ static int64_t deflate_optimal(const uint8_t *buf, int64_t hist_len,
         }
         int final = (flush == 2 || flush == 3) && (bend == n);
         if (!w.error)
-            write_block(&w, buf, bstart, bend, seqs, nseq, final);
+            write_block(&w, buf, bstart, bend, seqs, nseq, final, NULL);
         if (w.overflow || w.error) break;
         bstart = bend;
     }
@@ -1578,7 +1578,7 @@ int64_t deflate_c(const uint8_t *buf, int64_t hist_len, int64_t total_len,
                 nseq++;
             }
             int final = (flush == 2 || flush == 3) && (bend == n);
-            write_block(&w, buf, bstart, bend, seqs, nseq, final);
+            write_block(&w, buf, bstart, bend, seqs, nseq, final, NULL);
             if (w.error) return w.error;
             if (w.overflow) return ERR_SPACE;
             bstart = bend;
@@ -2645,7 +2645,7 @@ uint32_t adler32_c(uint32_t adler, const uint8_t *p, int64_t n) {
 }
 
 /* ------------------------------------------------------------------ */
-/* dynamic-Huffman table + header builder for the TPU device encoder   */
+/* dynamic-Huffman table + header builder for the device encoder      */
 /* ------------------------------------------------------------------ */
 
 /* Per-block service for the device dynamic tier (ops/encode_dynamic.py):

@@ -1,11 +1,13 @@
 """Python bindings for the native host codec (native/codec.c).
 
-Two tiers: a CPython C-extension (native/pymod.c, ~100 ns/call,
+Two bindings: the CPython C-extension (native/pymod.c, ~100 ns/call,
 releases the GIL on large buffers — the host thread-pool layer depends
-on that) and a ctypes fallback. Each function returns None when no
-native library is available so callers can fall back to the pure-Python
-engine — the same graceful degradation the reference applies to its
-CUDA path (reference src/batch.rs:23-27).
+on that) for the hot calls, and ctypes for the bit-exact incremental
+encoder and the resumable decoder. Both are built from the committed
+sources on first use; a failed build raises (native/__init__.py).
+Functions return None for inputs the C engine does not take (level 0,
+errors other than the ones mapped to exceptions), and callers then use
+the portable engine.
 """
 
 from __future__ import annotations
@@ -29,45 +31,22 @@ _FLUSH_SYNC = 1
 _FLUSH_FINISH = 2
 
 
-def native_available() -> bool:
-    return get_ext() is not None or get_lib() is not None
-
-
 def native_deflate(data: bytes, level: int, flush: int,
                    history: bytes = b"") -> bytes | None:
     """Raw DEFLATE of `data` (with LZ history), levels 1-12.
-    flush: 1 = SYNC, 2 = FINISH. None => no native library."""
+    flush: 1 = SYNC, 2 = FINISH. None for other levels or on error."""
     if not (1 <= level <= 12):
         return None
     ext = get_ext()
-    if ext is not None:
-        if history:
-            out = ext.deflate(data, level, flush, history)
-        else:
-            out = ext.deflate(data, level, flush)
-        if isinstance(out, int):
-            if out == _ERR_SPACE:
-                raise InsufficientSpaceError(
-                    "compressed output exceeded bound")
-            return None
-        return out
-    lib = get_lib()
-    if lib is None:
+    if history:
+        out = ext.deflate(data, level, flush, history)
+    else:
+        out = ext.deflate(data, level, flush)
+    if isinstance(out, int):
+        if out == _ERR_SPACE:
+            raise InsufficientSpaceError("compressed output exceeded bound")
         return None
-    import numpy as np
-    buf = history + data if history else data
-    total = len(buf)
-    cap = total + (total >> 3) + 4096
-    out = np.empty(cap, np.uint8)
-    src = np.frombuffer(buf, np.uint8) if total else np.zeros(1, np.uint8)
-    work = np.zeros(2 * _HASH_SIZE + total, np.int32)
-    n = lib.deflate_c(src.ctypes.data, len(history), total, level, flush,
-                      out.ctypes.data, cap, work.ctypes.data)
-    if n == _ERR_SPACE:
-        raise InsufficientSpaceError("compressed output exceeded bound")
-    if n < 0:
-        return None
-    return out[:n].tobytes()
+    return out
 
 
 def _map_inflate_err(n: int) -> None:
@@ -88,12 +67,10 @@ def native_deflate_bits(data: bytes, level: int, mode: int,
     byte-alignment padding.
 
     Returns (out_array, total_bits_including_phase) — for modes 1/2 the
-    bit count is 8 * byte count. None when no native library."""
+    bit count is 8 * byte count. None for other levels or on error."""
     if not (1 <= level <= 12):
         return None
     lib = get_lib()
-    if lib is None:
-        return None
     import numpy as np
     buf = history + data if history else data
     total = len(buf)
@@ -113,76 +90,39 @@ def native_deflate_bits(data: bytes, level: int, mode: int,
 
 
 def native_inflate(data: bytes, max_out: int):
-    """One-shot raw-DEFLATE decode. Returns (bytes, consumed) or None."""
-    ext = get_ext()
-    if ext is not None:
-        res = ext.inflate(data, max_out)
-        if isinstance(res, int):
-            _map_inflate_err(res)
-            return None
-        return res
-    lib = get_lib()
-    if lib is None:
+    """One-shot raw-DEFLATE decode. Returns (bytes, consumed), or None
+    for an error the mapped exceptions do not cover."""
+    res = get_ext().inflate(data, max_out)
+    if isinstance(res, int):
+        _map_inflate_err(res)
         return None
-    import numpy as np
-    src = np.frombuffer(data, np.uint8) if data else np.zeros(1, np.uint8)
-    out = np.empty(max(max_out, 1), np.uint8)
-    consumed = ctypes.c_int64(0)
-    n = lib.inflate_c(src.ctypes.data, len(data), out.ctypes.data,
-                      max_out, ctypes.byref(consumed))
-    if n < 0:
-        _map_inflate_err(n)
-        return None
-    return out[:n].tobytes(), int(consumed.value)
+    return res
 
 
-def native_crc32(data: bytes, crc: int = 0) -> int | None:
-    ext = get_ext()
-    if ext is not None:
-        return ext.crc32(data, crc)
-    lib = get_lib()
-    if lib is None:
-        return None
-    import numpy as np
-    src = np.frombuffer(data, np.uint8) if data else np.zeros(1, np.uint8)
-    return int(lib.crc32_c(crc & 0xFFFFFFFF, src.ctypes.data, len(data)))
+def native_crc32(data: bytes, crc: int = 0) -> int:
+    return get_ext().crc32(data, crc)
 
 
-def native_adler32(data: bytes, adler: int = 1) -> int | None:
-    ext = get_ext()
-    if ext is not None:
-        return ext.adler32(data, adler)
-    lib = get_lib()
-    if lib is None:
-        return None
-    import numpy as np
-    src = np.frombuffer(data, np.uint8) if data else np.zeros(1, np.uint8)
-    return int(lib.adler32_c(adler & 0xFFFFFFFF, src.ctypes.data, len(data)))
+def native_adler32(data: bytes, adler: int = 1) -> int:
+    return get_ext().adler32(data, adler)
 
 
 def native_resolve_tokens(tokens, out_cap: int) -> bytes | None:
     """Pass-2 LZ resolution of a device token column (ops/tokens.py
-    format). Returns the decoded bytes, None if the tokens are invalid,
-    or raises LookupError when no native library exists (callers use
-    the numpy resolver)."""
-    ext = get_ext()
-    if ext is not None:
-        return ext.resolve_tokens(tokens, out_cap)
-    raise LookupError("no native resolver")
+    format). Returns the decoded bytes, or None if the tokens are
+    invalid."""
+    return get_ext().resolve_tokens(tokens, out_cap)
 
 
 class CInflater:
     """Native resumable streaming decoder (codec.c icx_*), presenting
     the same step() protocol as models/portable/inflate.Inflater so
-    DeflateDecoder can use it for non-seekable readers at native speed.
-    Raises LookupError at construction when no native library exists."""
+    DeflateDecoder can use it for non-seekable readers at native speed."""
 
     def __init__(self) -> None:
         import numpy as np
 
         lib = get_lib()
-        if lib is None:
-            raise LookupError("no native library")
         self._lib = lib
         self._ctx = np.zeros(int(lib.icx_size()), np.uint8)
         lib.icx_init(self._ctx.ctypes.data)

@@ -1,14 +1,14 @@
-"""Checksum algebra shared by host and TPU paths (pure numpy, no JAX).
+"""Checksum algebra shared by host and device paths (pure numpy, no JAX).
 
 CRC-32 (reflected poly 0xEDB88320, gzip) is GF(2)-linear: the register
 update is a linear map, so per-shard CRCs combine with a "shift by N bytes"
 operator computed by square-and-multiply over 32x32 bit-matrices. Adler-32
 parts combine with modular arithmetic. These associative combines are what
-let the TPU path reduce per-block checksums with a small psum-style tree
+let the device path reduce per-block checksums with a small psum-style tree
 instead of a serial pass (SURVEY.md §2 "Distributed communication backend").
 
 The reference implements these checksums as runtime-dispatched SIMD kernels
-(reference src/crc32/, src/adler32/); the TPU equivalents live in
+(reference src/crc32/, src/adler32/); the device equivalents live in
 ops/checksums.py and are validated against this module and CPython zlib.
 """
 

@@ -1,15 +1,15 @@
-"""TPU checksum kernels (JAX/XLA, MXU-formulated).
+"""Device checksum kernels (plain JAX/XLA, matmul-formulated).
 
 This layer replaces the reference's runtime-dispatched SIMD checksum tiers
 (reference src/crc32/x86.rs PCLMULQDQ folding, src/adler32/x86.rs VNNI dot
-products) with formulations native to the TPU's matrix unit:
+products) with formulations built on matrix products:
 
  - **CRC-32 as a GF(2) matmul.** The CRC register is a linear function of
    the message bits, so the CRC of an L-byte chunk is the parity (mod-2) of
    `bits(chunk) @ K`, where K is an (8L, 32) 0/1 constant matrix built on
    the host from the shift-by-one-byte operator. 0/1 matmuls accumulate
-   exactly in f32 (sums ≤ 8L << 2^24), so the MXU does the heavy lifting at
-   256 MACs/byte. Chunk registers then fold with the associative
+   exactly in f32 (sums ≤ 8L << 2^24), so the matrix product does the
+   heavy lifting at 256 MACs/byte. Chunk registers then fold with the associative
    shift-combine in a log-depth tree of vectorized 32-step bit-matrix
    applications.
 
@@ -17,6 +17,9 @@ products) with formulations native to the TPU's matrix unit:
    position-weighted sums via matmul against [ones, arange] weights (exact
    in f32 for 128-byte chunks), then closed-form recombination with
    hierarchical mod-65521 reductions (int32-safe throughout).
+
+Every float32 product asks for Precision.HIGHEST: the sums are exact in
+float32 but not in the TF32 a GPU may otherwise use for them.
 
 Both kernels take uint8 arrays of static shape plus the true length as a
 traced scalar is NOT supported — lengths are static per compiled shape,
@@ -79,8 +82,7 @@ def _pack_bits_u32(par: jnp.ndarray) -> jnp.ndarray:
 
     Deliberately NOT a chained OR-of-shifts: that pattern miscompiles on
     the XLA CPU backend shipped here (bits 16..23 corrupted under jit);
-    a weighted uint32 sum of disjoint bits is equivalent and also lowers
-    better on TPU.
+    a weighted uint32 sum of disjoint bits is equivalent.
     """
     w = jnp.asarray(_BIT_WEIGHTS_U32)
     return jnp.sum(par.astype(jnp.uint32) * w, axis=-1, dtype=jnp.uint32)
@@ -94,12 +96,13 @@ def _u32_to_bits_f(v: jnp.ndarray) -> jnp.ndarray:
 
 def _jnp_mat_apply(cols: np.ndarray, v: jnp.ndarray) -> jnp.ndarray:
     """Apply a constant GF(2) bit-matrix to uint32 value(s): formulated as
-    a 0/1 matmul mod 2 (exact in f32; MXU-friendly on TPU)."""
+    a 0/1 matmul mod 2 (exact in f32)."""
     mbits = ((cols.astype(np.uint32)[:, None]
               >> np.arange(32, dtype=np.uint32)[None, :]) & 1).astype(np.float32)
     vbits = _u32_to_bits_f(v)
     acc = jnp.dot(vbits, jnp.asarray(mbits),
-                  preferred_element_type=jnp.float32)
+                  preferred_element_type=jnp.float32,
+                  precision=jax.lax.Precision.HIGHEST)
     return _pack_bits_u32(acc.astype(jnp.int32) & 1)
 
 
@@ -131,7 +134,8 @@ def crc32_fixed(data: jnp.ndarray, length: int, crc_in: jnp.ndarray | int = 0):
     num_chunks = pad_n // CRC_CHUNK
     k = jnp.asarray(_crc_bitmatrix(CRC_CHUNK))
     bits = _bytes_to_bits_f(data.reshape(num_chunks, CRC_CHUNK))
-    acc = jnp.dot(bits, k, preferred_element_type=jnp.float32)
+    acc = jnp.dot(bits, k, preferred_element_type=jnp.float32,
+                  precision=jax.lax.Precision.HIGHEST)
     regs = _pack_bits_u32(acc.astype(jnp.int32) & 1)
     # Log-depth fold: combine(left,right) = shift(left, right_len) ^ right.
     # Odd level sizes append a zero register — the register of a span of
@@ -236,7 +240,8 @@ def adler32_fixed(data: jnp.ndarray, length: int,
     d = data.reshape(c, ADLER_CHUNK).astype(jnp.float32)
     w = np.stack([np.ones(ADLER_CHUNK, np.float32),
                   np.arange(ADLER_CHUNK, dtype=np.float32)], axis=1)
-    sums = jnp.dot(d, jnp.asarray(w), preferred_element_type=jnp.float32)
+    sums = jnp.dot(d, jnp.asarray(w), preferred_element_type=jnp.float32,
+                  precision=jax.lax.Precision.HIGHEST)
     s1_c = sums[:, 0].astype(jnp.int32)      # Σ bytes per chunk, ≤ 32640
     j_c = sums[:, 1].astype(jnp.int32)       # Σ j*byte per chunk, ≤ 2.1e6
     # Σ_i (n-i) d_i  =  Σ_c [ (n - c*L) * S1_c - J_c ]
@@ -269,7 +274,8 @@ def crc32_blocks(data: jnp.ndarray, lengths: jnp.ndarray) -> jnp.ndarray:
     k = jnp.asarray(_crc_bitmatrix(CRC_CHUNK))
     bits = _bytes_to_bits_f(data.reshape(b, num_chunks, CRC_CHUNK))
     acc = jnp.dot(bits.reshape(b * num_chunks, -1), k,
-                  preferred_element_type=jnp.float32)
+                  preferred_element_type=jnp.float32,
+                  precision=jax.lax.Precision.HIGHEST)
     regs = _pack_bits_u32(acc.astype(jnp.int32) & 1).reshape(b, num_chunks)
     span = CRC_CHUNK
     virtual_len = s
@@ -313,7 +319,8 @@ def adler32_blocks(data: jnp.ndarray, lengths: jnp.ndarray) -> jnp.ndarray:
     w = np.stack([np.ones(ADLER_CHUNK, np.float32),
                   np.arange(ADLER_CHUNK, dtype=np.float32)], axis=1)
     sums = jnp.dot(d.reshape(b * c, ADLER_CHUNK), jnp.asarray(w),
-                   preferred_element_type=jnp.float32).reshape(b, c, 2)
+                   preferred_element_type=jnp.float32,
+                  precision=jax.lax.Precision.HIGHEST).reshape(b, c, 2)
     s1_c = sums[:, :, 0].astype(jnp.int32) % ADLER_MOD
     j_c = sums[:, :, 1].astype(jnp.int32) % ADLER_MOD
     n = lengths.astype(jnp.int32)

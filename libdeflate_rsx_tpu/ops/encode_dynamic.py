@@ -3,7 +3,7 @@
 The static tier (ops/encode_v2.py) trades ratio for zero table state; this
 tier adds per-block dynamic Huffman coding — the reference's dynamic-block
 path (reference src/compress/mod.rs:1775-1883 header construction,
-:509-541 per-block code tables) re-split for the TPU execution model:
+:509-541 per-block code tables) re-split for a device execution model:
 
   jit A  analyze_block — the shared match pipeline (sort matchfinder,
          run extension, token selection) plus per-block litlen/offset
@@ -16,8 +16,8 @@ path (reference src/compress/mod.rs:1775-1883 header construction,
          package-merge; microseconds per block in C.
   jit B  emit_pack — tokens are coded through the per-block tables (two
          64K-element gathers — the one place gather wins: 288-entry
-         tables stay in registers/VMEM) and bit-packed by the shared
-         pack_rows MXU packer, starting at the header's bit length.
+         tables stay in fast memory) and bit-packed by the shared
+         pack_rows matmul packer, starting at the header's bit length.
 
 A match token can exceed 32 bits under dynamic codes (15+5 length part,
 15+13 offset part), so it is emitted as TWO lanes: the length part at the
@@ -245,10 +245,11 @@ def find_matches_l6(data_padded: jnp.ndarray, valid_len: jnp.ndarray,
         ml = jnp.where(ok, ml, 0)
         dist = jnp.where(ok, dist, 0)
         acc_ml, acc_d = _merge_cand(ml, dist, acc_ml, acc_d)
-    packed = acc_d.astype(U) | (acc_ml.astype(U) << U(20))
+    # int32 like the permutation key (see ops/encode_v2.find_matches_v2)
+    packed = acc_d | (acc_ml << 20)
     _, packed_u = jax.lax.sort((poss, packed), dimension=0, num_keys=1)
-    best_ml = (packed_u >> U(20)).astype(jnp.int32)
-    best_dist = (packed_u & U(0xFFFFF)).astype(jnp.int32)
+    best_ml = packed_u >> 20
+    best_dist = packed_u & 0xFFFFF
 
     # --- prefix-doubling rank ladder (stride-2 grid) ------------------------
     GS = L6_GRID
@@ -294,11 +295,11 @@ def find_matches_l6(data_padded: jnp.ndarray, valid_len: jnp.ndarray,
         neq = (kAs != shiftm(kAs, 1)) | (kBs != shiftm(kBs, 1)) \
             | (gidx == 0)
         rank_sorted = jnp.cumsum(neq.astype(jnp.int32))
-        packed = t_d.astype(U) | (t_ml.astype(U) << U(20))
+        packed = t_d | (t_ml << 20)         # int32, as above
         _, rank_g, packed_g = jax.lax.sort(
             (gs, rank_sorted, packed), dimension=0, num_keys=1)
-        ml_g = (packed_g >> U(20)).astype(jnp.int32)
-        dist_g = (packed_g & U(0xFFFFF)).astype(jnp.int32)
+        ml_g = packed_g >> 20
+        dist_g = packed_g & 0xFFFFF
         return rank_g, ml_g, dist_g
 
     # rank of the 8-byte prefix on the grid (no candidate extraction:
@@ -400,12 +401,11 @@ def jit_emit(block_size: int):
 
 def build_tables_host(ll_hist, of_hist, finals: np.ndarray):
     """Histograms -> (ll_tabs (B,288) u32, of_tabs (B,30) u32,
-    headers list[bytes], hdr_bits (B,) int32). Native C fast path
-    (dyn_tables_c), pure-Python package-merge fallback.
+    headers list[bytes], hdr_bits (B,) int32) from the native C builder
+    (dyn_tables_c).
 
-    Accepts device arrays: both histograms come down in ONE transfer —
-    on a high-latency link two sequential np.asarray round trips would
-    dominate the whole host step."""
+    Accepts device arrays: both histograms come down in one transfer
+    rather than two sequential round trips."""
     import jax
 
     ll_hist, of_hist = (np.asarray(x).astype(np.uint32) for x in
@@ -417,17 +417,15 @@ def build_tables_host(ll_hist, of_hist, finals: np.ndarray):
     headers: list[bytes] = []
     hdr_bits = np.zeros(b, np.int32)
     for i in range(b):
-        res = dyn_tables_native(ll_hist[i], of_hist[i], bool(finals[i]))
-        if res is None:
-            res = _build_tables_py(ll_hist[i], of_hist[i], bool(finals[i]))
-        ll_tabs[i], of_tabs[i], hdr, hdr_bits[i] = res
+        ll_tabs[i], of_tabs[i], hdr, hdr_bits[i] = dyn_tables_native(
+            ll_hist[i], of_hist[i], bool(finals[i]))
         headers.append(hdr)
     return ll_tabs, of_tabs, headers, hdr_bits
 
 
 def _build_tables_py(ll_hist: np.ndarray, of_hist: np.ndarray,
                      final: bool):
-    """Pure-Python fallback mirroring native dyn_tables_c."""
+    """Pure-Python mirror of native dyn_tables_c: the tests' oracle."""
     from ..models.portable.deflate import (
         TokenStream,
         _dynamic_header_tokens,

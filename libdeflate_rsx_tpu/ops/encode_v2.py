@@ -1,11 +1,10 @@
 """Gather-free static-Huffman DEFLATE block encoder (device hot path).
 
-Hardware-measured premise: on TPU, gathers/scatters cost ~9-19 ms per
-million elements while sorts (~1 ms/M), scans, and elementwise ops run at
-full VPU/MXU speed. The v1 encoder (argsort + gather extension loop +
-pointer-jumping + scatter-add packing) spent ~120 ms per 64 KiB block in
-those slow paths. This v2 pipeline uses ONLY sorts, associative scans,
-elementwise ops, and one small sequential walk — no gathers, no scatters:
+Design premise (inherited from the accelerator this encoder was first
+written for, where gathers and scatters were an order of magnitude
+slower than sorts, scans and elementwise ops; not yet re-measured on the
+GPU): this pipeline uses ONLY sorts, associative scans, elementwise ops,
+and one small sequential walk — no gathers, no scatters:
 
  1. match finding: one stable multi-operand `lax.sort` keyed on the actual
     4-byte word at each position, carrying (pos, next 12 bytes). The
@@ -99,10 +98,13 @@ def find_matches_v2(data_padded: jnp.ndarray, valid_len: jnp.ndarray,
     ml = jnp.where(ok, ml, 0)
     dist = jnp.where(ok, dist, 0)  # garbage dist would corrupt the packing
 
-    packed = dist.astype(U) | (ml.astype(U) << U(20))
+    # int32 like its permutation key: XLA's GPU permutation-sort
+    # simplifier turns this sort into a scatter whose combiner takes the
+    # key's type, which fails to verify for a uint32 payload
+    packed = dist | (ml << 20)
     _, packed_u = jax.lax.sort((poss, packed), dimension=0, num_keys=1)
-    ml_u = (packed_u >> U(20)).astype(jnp.int32)
-    dist_u = (packed_u & U(0xFFFFF)).astype(jnp.int32)
+    ml_u = packed_u >> 20
+    dist_u = packed_u & 0xFFFFF
     cap = jnp.clip(valid_len - pos, 0, MAX_VEC_ML)
     ml_u = jnp.minimum(ml_u, cap)
     ml_u = jnp.where(ml_u >= MIN_MATCH, ml_u, 0)
@@ -152,10 +154,10 @@ _SCAN_CHUNK = 256
 def _two_level(op, x: jnp.ndarray, fill: int = -(1 << 28)) -> jnp.ndarray:
     """Inclusive forward prefix scan of an idempotent op (max/min) as a
     manual Hillis-Steele doubling loop: log2(n) shifted-combine steps of
-    plain elementwise ops. Measured ~10-30x faster on this backend than
-    jax.lax.associative_scan in ANY shape (the generic odd-even scan
-    construction dominates the encode pipeline's profile; simple shifts
-    fuse into cheap VPU passes). `fill` must be op's identity."""
+    plain elementwise ops, which fuse into a few cheap passes (the
+    generic odd-even construction of jax.lax.associative_scan was the
+    slower choice where first measured). `fill` must be op's
+    identity."""
     n = x.shape[0]
     d = 1
     while d < n:
@@ -183,8 +185,7 @@ def select_tokens(ml: jnp.ndarray, dist: jnp.ndarray,
     Phase 2 (short matches, exact in-tile greedy): remaining matches are
     capped at their WTILE cell boundary and at the next phase-1 match
     start, then each cell runs the true greedy walk — a WTILE-step fori_loop
-    over a lean u8 step array (measured ~0.6 us/iteration on TPU),
-    entering at the cell's first byte not covered by phase 1.
+    over a lean u8 step array, entering at the cell's first byte not covered by phase 1.
 
     Returns (ml_emit, sel, lit): disjoint selected matches with their
     emission lengths, and the literal mask covering every remaining byte.
@@ -244,9 +245,9 @@ def select_tokens(ml: jnp.ndarray, dist: jnp.ndarray,
     # exact greedy walk per cell, jumping candidate-to-candidate: each
     # iteration selects one match (everything skipped in between is a
     # literal or sel1-covered byte), so the trip count is bounded by
-    # WTILE/MIN_MATCH + 1 instead of WTILE. (A matrix-power MXU
-    # reachability variant was measured SLOWER: 16K batched 64x64
-    # squarings are memory-bound.)
+    # WTILE/MIN_MATCH + 1 instead of WTILE. (A matrix-power
+    # reachability variant is memory-bound: 16K batched 64x64
+    # squarings.)
     def body(_, st):
         cur, vis, s2 = st
         cand = jnp.max(jnp.where(lane == jnp.minimum(cur, WTILE - 1)[:, None],
@@ -277,7 +278,7 @@ def select_tokens(ml: jnp.ndarray, dist: jnp.ndarray,
 def pack_rows(val: jnp.ndarray, nb: jnp.ndarray, start_bits,
               row_out: int = ROW_OUT):
     """Bit-pack per-lane tokens (val, nb) into globally-aligned row
-    buffers (fully parallel: one cumsum + one-hot MXU word placement).
+    buffers (fully parallel: one cumsum + one-hot matmul word placement).
 
     start_bits is the global bit offset of lane 0's first bit (scalar,
     may be traced — the dynamic tier's variable-length header precedes
@@ -301,9 +302,10 @@ def pack_rows(val: jnp.ndarray, nb: jnp.ndarray, start_bits,
     v = val.reshape(r, ROW)
     lo = v << shift
     hi = jnp.where(shift == 0, U(0), v >> (U(32) - shift))
-    # 8-bit byte planes: TPU matmuls run at bf16 input precision by
-    # default, and integers <= 255 (and their disjoint-bit sums) are
-    # exact in bf16 — 16-bit parts would be silently truncated.
+    # exact by construction: 8-bit byte planes (integers <= 255 are
+    # exact in bfloat16), a one-hot operand (each output word sums
+    # disjoint-bit bytes) and float32 accumulation; 16-bit parts would
+    # not be exact in bfloat16.
     parts = jnp.stack(
         [((lo >> U(8 * k)) & U(0xFF)).astype(jnp.bfloat16) for k in range(4)]
         + [((hi >> U(8 * k)) & U(0xFF)).astype(jnp.bfloat16)
@@ -348,7 +350,7 @@ def pack_rows(val: jnp.ndarray, nb: jnp.ndarray, start_bits,
 def encode_rows_static(data_padded: jnp.ndarray, valid_len: jnp.ndarray,
                        is_final: jnp.ndarray, block_size: int):
     """Device encoder for one padded block — fully parallel (sorts, scans,
-    elementwise ops, and one-hot MXU word placement; no loops, no gathers,
+    elementwise ops, and one-hot matmul word placement; no loops, no gathers,
     no scatters).
 
     Returns (rows (R, ROW_OUT+1) uint8 globally-bit-aligned row buffers,
@@ -389,12 +391,10 @@ def jit_encoder_scan(block_size: int, unroll: int = 8):
     """Encoder over (k, B, S+PAD) chunked batches: an UNROLLED loop of
     independent chunk subgraphs inside one jit.
 
-    Two hardware facts drive this shape (measured): queued programs
-    execute sequentially on the core, so separate dispatches never
-    overlap; but XLA freely interleaves independent subgraphs WITHIN one
-    program, hiding each chunk's long dependency chain (sorts + scans)
-    behind its neighbors' — unrolled chunks run ~15 ms each vs ~200 ms
-    serially. lax.scan would re-serialize them; a python loop in the
+    Separate dispatches of small programs do not overlap one another;
+    XLA can interleave independent subgraphs WITHIN one program, hiding
+    each chunk's long dependency chain (sorts + scans) behind its
+    neighbors'. lax.scan would re-serialize them; a python loop in the
     traced function keeps them independent."""
     f = jax.vmap(functools.partial(encode_rows_static,
                                    block_size=block_size))

@@ -1,10 +1,5 @@
-"""Pallas TPU kernels.
+"""Pallas kernels for the GPU (Triton route).
 
-Currently: inflate_static — bit-serial batch decode of stored/static
-DEFLATE streams (one stream per grid cell, SMEM scalar decode). See the
-module docstring for scope and status.
+inflate_tokens — pass 1 of the batch decoder: lockstep entropy decode
+of many DEFLATE streams, one token per stream per step.
 """
-
-from .inflate_static import inflate_device_static
-
-__all__ = ["inflate_device_static"]

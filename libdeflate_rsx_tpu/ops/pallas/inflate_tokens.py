@@ -1,40 +1,43 @@
-"""Pallas TPU kernel: lockstep-SIMD DEFLATE entropy decoder (pass 1).
+"""Pass 1 of the batch DEFLATE decoder: lockstep entropy decode on the GPU.
 
-The round-3 decode architecture. The round-2 kernel (inflate_v2.py) ran
-one stream per grid cell as a scalar symbol loop; since a TPU core has a
-single scalar pipeline, grid cells serialize and throughput was capped at
-~0.27 GB/s. This kernel instead decodes LANES=128 streams *per grid
-cell simultaneously*, one stream per VPU lane, so the per-symbol work is
-vector ops across lanes (the TPU re-design of the reference's per-thread
-batch decode, reference src/batch.rs:74-101, and its table-driven symbol
-loop, reference src/decompress/mod.rs:509-1072).
+Every stream of a batch is one lane of a lane vector. One Pallas program
+(Triton route) decodes `lanes` streams together, one symbol step per
+loop iteration, and stores one int32 token per lane per step at
+`tok[step, stream]` (ops/tokens.py format). Pass 2 (LZ copy resolution)
+is the native C resolver on the host pool or ops/resolve.py on the
+device. This is the GPU design of the reference's per-thread batch
+decode (reference src/batch.rs:74-101) and its table-driven symbol loop
+(reference src/decompress/mod.rs:509-1072).
 
-Key design points (all probed on real TPU hardware this round):
-- Canonical-arithmetic Huffman decode: bit-reverse the peeked 15 bits,
-  compare against per-length MSB-aligned limits (a 15-row compare
-  ladder), then one one-hot gather into the per-lane canonical symbol
-  permutation. No 2048-entry root tables - the only large gather is the
-  288-row perm.
-- Per-lane 64-bit bit buffer (two uint32 vectors + bit count), refilled
-  word-by-word from a VMEM window via one-hot row gathers.
-- Input windows: each lane's next two 256-byte chunks, fetched by
-  per-lane DMA (leading-index-only - inner-dim DMA slicing is broken in
-  this toolchain) into lane-major staging, then transposed in-kernel to
-  lane-minor layout. Refill every REFILL_EVERY steps.
-- Lanes run a mode machine (block header / precode / code-lens RLE /
-  table build / body / stored / done / bad). Cheap handlers are gated
-  with lax.cond on "any lane in mode"; the expensive canonical table
-  build is *batched*: lanes reaching it stall until enough lanes (or
-  all active lanes) need it, then one masked build serves them all.
-- One int32 token per lane per step (ops/tokens.py format; header/stall
-  steps emit NOPs), written to a VMEM ring and DMA-flushed to HBM every
-  TOK_CHUNK steps. Pass 2 (LZ resolution) is native/codec.c
-  resolve_tokens_c or the numpy fallback.
+Per lane, a mode machine walks the stream: block header, precode
+lengths, code-length RLE, waiting for a table build, block body, stored
+bytes, done, bad.
 
-Caps: 64 KiB compressed input and 64 KiB output per stream. Streams
-that exceed a cap, are malformed, or do not finish within the step
-budget report a non-DONE mode and the caller falls back to the host
-decoder (the reference's graceful-fallback pattern, src/batch.rs:23-27).
+- Bit buffer: 64 bits as two uint32 words; each refill is one indexed
+  load of the lane's next word from the flat (streams, words) input.
+- Huffman decode is canonical arithmetic: bit-reverse 15 peeked bits,
+  compare them with the code's 16 MSB-aligned limits (one (lanes, 16)
+  load), then load the base-first offset and the symbol permutation.
+  Tables live in one ROW-int row per lane of a device scratch buffer;
+  the static-Huffman tables and the precode order live in one shared
+  row after the lane rows, chosen per lane by a table base.
+- A lane that finished its code lengths enters AWAITBUILD, and one
+  masked build in the same step serves every lane of the program that
+  did so. A build counts code lengths
+  into a (lanes, 16) register block, turns them into limits and offsets
+  with two prefix sums, and places symbols with one pass over them.
+- Masked-off lanes write to a trash slot of their own row, so every
+  store is unconditional. A block barrier closes each build: the
+  lanes' table rows are written and read by different threads.
+
+Streams over the input cap, malformed streams and streams that do not
+finish within the step budget end in a mode other than DONE; callers
+decode those items on the host (the reference's graceful-fallback
+pattern, src/batch.rs:23-27).
+
+Interpret mode (`interpret=True`) runs the same kernel in the Pallas
+interpreter and exists for the CPU tests. Without it the kernel needs a
+CUDA GPU and raises on any other backend.
 """
 
 from __future__ import annotations
@@ -42,79 +45,91 @@ from __future__ import annotations
 import functools
 
 import jax
+import jax.experimental.pallas as pl
 import jax.numpy as jnp
 import numpy as np
+from jax import lax
+from jax.experimental.pallas import triton as plgpu
 
 from ..tokens import KIND_LIT, KIND_MATCH, KIND_SHIFT
 
-LANES = 128                 # streams per grid cell (VPU lane axis)
-CHUNK_WORDS = 128           # input DMA chunk: 128 words = 512 B (the
-                            # DMA minor dim must be 128-aligned)
-CHUNK_STRIDE = 64           # chunks overlap at 64-word stride so the
-                            # initial in-window offset is < 64 and a
-                            # 128-row window suffices (halves the
-                            # window-gather cost vs aligned chunks)
-WIN_ROWS = CHUNK_WORDS      # per-lane window rows
-IN_CAP = 65536              # compressed bytes per stream
-NCHUNK = IN_CAP // (4 * CHUNK_STRIDE) + 6  # overlapped chunk count + pad
-OUT_CAP = 65536             # decoded bytes per stream
-TOK_CHUNK = 256             # steps per token flush
-REFILL_EVERY = 32           # steps between refills: offset(<64) +
-                            # 32*1.5 words consumed + peek ahead < 128
+IN_CAP = 65536              # compressed bytes per stream (default bucket)
+OUT_CAP = 65536             # decoded bytes per stream (default bucket)
+MAX_LANES = 32              # most streams per program
+MAX_PROGRAMS = 4096         # about one wave of one-warp programs on an
+                            # H100 (132 SMs x 32 resident blocks)
+NUM_WARPS = 1
 
 # lane modes (active = mode < DONE)
 BLKSTART, PRELEN, LENS, AWAITBUILD, BODY, STORED, DONE, BAD = range(8)
+
+# rows of the stats output
+S_MODE, S_OUTPOS, S_DONESTEP, S_BITPOS, S_LASTSTEP = range(5)
+NSTATS = 5
+
+# int32 offsets inside a table row; the last row of the scratch buffer
+# holds the static tables at the same offsets plus the precode order
+ROW = 1024
+T_LENS = 0                  # 288 litlen + 32 distance code lengths
+T_PLENS = 320               # 19 precode lengths, by symbol
+T_LL_LIM, T_LL_FB = 352, 368
+T_OF_LIM, T_OF_FB = 384, 400
+T_PRE_LIM, T_PRE_FB = 416, 432
+T_LL_PERM = 448             # 288 symbols sorted by (length, symbol)
+T_OF_PERM = 736             # 32
+T_PRE_PERM = 768            # 19 (32)
+T_ORDER = 800               # static row: RFC 1951 3.2.7 length order
+T_INV_ORDER = 832           # static row: position of a symbol in it
+T_TRASH = 1008              # 16 slots for masked-off stores
 
 # precode length order (RFC 1951 3.2.7)
 CLCL_ORDER = np.array([16, 17, 18, 0, 8, 7, 9, 6, 10, 5, 11, 4, 12, 3,
                        13, 2, 14, 1, 15], np.int32)
 
 
-def _static_tables():
-    """Static-Huffman canonical params (lim MSB-aligned, fb = base-first,
-    perm) for litlen and dist, as numpy arrays."""
-    def canon(lens, nperm):
-        cnt = np.zeros(16, np.int64)
-        for l in lens:
-            cnt[l] += 1
-        cnt[0] = 0
-        lim = np.full(16, 1 << 29, np.int64)
-        first = np.zeros(16, np.int64)
-        base = np.zeros(16, np.int64)
-        code = 0
-        bidx = 0
-        for l in range(1, 16):
-            first[l] = code
-            base[l] = bidx
-            lim[l] = (code + cnt[l]) << (15 - l)
-            code = (code + cnt[l]) << 1
-            bidx += cnt[l]
-        order = sorted(range(len(lens)), key=lambda s: (lens[s], s))
-        perm = np.zeros(nperm, np.int64)
-        i = 0
-        for s in order:
-            if lens[s]:
-                perm[i] = s
-                i += 1
-        packed = np.zeros((nperm + 1) // 2, np.int64)
-        for i in range(nperm):
-            packed[i >> 1] |= perm[i] << ((i & 1) * 16)
-        fb = base - first
-        return (lim.astype(np.int32), fb.astype(np.int32),
-                packed.astype(np.int32))
-
-    ll_lens = [8] * 144 + [9] * 112 + [7] * 24 + [8] * 8
-    of_lens = [5] * 32
-    return canon(np.array(ll_lens), 288), canon(np.array(of_lens), 32)
+def canonical_tables(lens, nperm: int):
+    """Host mirror of the in-kernel build: code lengths -> (lim (16,)
+    MSB-aligned limits with lim[0] unused and huge, fb (16,) = base
+    index - first code, perm (nperm,) symbols sorted by (length,
+    symbol))."""
+    lens = np.asarray(lens, np.int64)
+    cnt = np.bincount(lens, minlength=16)[:16]
+    cnt[0] = 0
+    w = cnt << (15 - np.arange(16))
+    incl = np.cumsum(w)
+    first = (incl - w) >> (15 - np.arange(16))
+    bidx = np.cumsum(cnt) - cnt
+    lim = incl.copy()
+    lim[0] = 1 << 29
+    perm = np.zeros(nperm, np.int64)
+    used = [s for s in sorted(range(len(lens)), key=lambda s: (lens[s], s))
+            if lens[s]]
+    perm[:len(used)] = used
+    return (lim.astype(np.int32), (bidx - first).astype(np.int32),
+            perm.astype(np.int32))
 
 
-(_S_LL_LIM, _S_LL_FB, _S_LL_PERM), (_S_OF_LIM, _S_OF_FB, _S_OF_PERM) = \
-    _static_tables()
+def _static_row() -> np.ndarray:
+    row = np.zeros(ROW, np.int32)
+    ll = canonical_tables([8] * 144 + [9] * 112 + [7] * 24 + [8] * 8, 288)
+    of = canonical_tables([5] * 32, 32)
+    for (lim, fb, perm), (o_lim, o_fb, o_perm) in (
+            (ll, (T_LL_LIM, T_LL_FB, T_LL_PERM)),
+            (of, (T_OF_LIM, T_OF_FB, T_OF_PERM))):
+        row[o_lim:o_lim + 16] = lim
+        row[o_fb:o_fb + 16] = fb
+        row[o_perm:o_perm + len(perm)] = perm
+    row[T_ORDER:T_ORDER + 19] = CLCL_ORDER
+    row[T_INV_ORDER:T_INV_ORDER + 19] = np.argsort(CLCL_ORDER)
+    return row
+
+
+_STATIC_ROW = _static_row()
 
 
 # ---------------------------------------------------------------- helpers
 def _shl(x, s):
-    """x << s with s possibly >= 32 (result 0). x, s: (S,128) uint32."""
+    """x << s for uint32 x, s; s >= 32 gives 0."""
     return jnp.where(s >= 32, jnp.uint32(0), x << (s & 31))
 
 
@@ -131,45 +146,13 @@ def _rev15(x):
     return x >> 1
 
 
-def _rows(n, s):
-    return jax.lax.broadcasted_iota(jnp.int32, (n, s, 128), 0)
-
-
-def _gather(ref, idx, n, s):
-    """ref[(n,S,128)][idx] per lane -> (S,128) int32; idx in [0,n)."""
-    m = _rows(n, s) == idx[None]
-    return jnp.sum(jnp.where(m, ref[...], 0), axis=0)
-
-
-def _scatter(ref, idx, val, mask, n, s):
-    """Masked per-lane write ref[idx, si, li] = val."""
-    m = (_rows(n, s) == idx[None]) & mask[None]
-    ref[...] = jnp.where(m, jnp.broadcast_to(val[None], (n, s, 128)),
-                         ref[...])
-
-
-def _decode_canonical(pk, lim_ref, fb_ref, perm_ref, nperm, s):
-    """One canonical-Huffman decode from 32 peeked bits.
-
-    Returns (sym, code_len, bad). lim rows are MSB-aligned 15-bit
-    limits (row 0 unused = huge); fb rows are base_index - first_code.
-    """
-    v15 = _rev15((pk & jnp.uint32(0x7FFF)).astype(jnp.int32))
-    ge = (v15[None] >= lim_ref[...]).astype(jnp.int32)
-    length = 1 + jnp.sum(ge[1:16], axis=0)
-    bad = length >= 16
-    lc = jnp.clip(length, 1, 15)
-    off = (v15 >> (15 - lc)) + _gather(fb_ref, lc, 16, s)
-    offc = jnp.clip(off, 0, nperm - 1)
-    # perm rows pack two 16-bit symbols (halves the big gather)
-    packed = _gather(perm_ref, offc >> 1, (nperm + 1) // 2, s)
-    sym = (packed >> ((offc & 1) << 4)) & 0xFFFF
-    return sym, lc, bad
+def _count(mask):
+    return jnp.sum(mask.astype(jnp.int32))
 
 
 def _len_extra(sym):
     """Litlen symbol (257..285) -> (extra_bits, base_len). Closed form
-    of the RFC 1951 3.2.5 table (shared with inflate_v2.py)."""
+    of the RFC 1951 3.2.5 table."""
     ls = sym - 257
     eb = jnp.where(ls < 8, 0, jnp.where(ls == 28, 0, (ls >> 2) - 1))
     base = jnp.where(ls < 8, ls + 3,
@@ -184,715 +167,394 @@ def _dist_extra(dsym):
     return deb, dbase
 
 
-# Dynamic leading-row VMEM store strategy: "ds" (pl.ds slice store, fast
-# if this Mosaic build supports it) or "onehot" (always works).
-_ROW_STORE = "ds"
+# ------------------------------------------------------------ lane decoder
+def _decode_lanes(inbits_ref, words_ref, tab, tok_ref, stats_ref, base,
+                 lanes: int, *, npad: int, in_words: int, max_steps: int,
+                 out_cap: int, barrier: bool):
+    """Decode streams base .. base+lanes-1 of the batch.
 
-
-def _store_row(ref, row, val, n, s):
-    """ref[row] = val for a traced scalar row index."""
-    import jax.experimental.pallas as pl
-
-    if _ROW_STORE == "ds":
-        ref[pl.ds(row, 1)] = val[None]
-    else:
-        m = _rows(n, s) == row
-        ref[...] = jnp.where(m, jnp.broadcast_to(val[None], (n, s, 128)),
-                             ref[...])
-
-
-def _nibble_write(ref, pos, val, mask, nrows, s):
-    """Masked per-lane write of a 4-bit code length into a packed row
-    (8 lengths per int32). Target nibbles are pre-zeroed and written at
-    most once, so OR suffices."""
-    m = (_rows(nrows, s) == (pos >> 3)[None]) & mask[None]
-    ref[...] = jnp.where(m, ref[...] | (val << ((pos & 7) * 4))[None],
-                         ref[...])
-
-
-def _nib(packed_row, sym):
-    """Code length of `sym` from its packed row (static shift)."""
-    return (packed_row >> ((sym & 7) * 4)) & 15
-
-
-def _build_canonical(lens_ref, nsym, lim_ref, fb_ref, perm_ref, mask, s,
-                     nperm=None, unroll=True):
-    """Masked in-kernel canonical-code construction from code lengths.
-
-    For lanes in `mask`: counts per length, MSB-aligned limits, combined
-    base-first offsets, and the canonical symbol permutation (counting
-    sort by (length, symbol), statically unrolled over symbols when
-    `unroll` — the Mosaic-proven form — or as a lax.fori_loop when not:
-    the unrolled 288-symbol litlen loop dominates the traced program
-    size, and on the interpret/CPU backend that inflates the XLA
-    compile from seconds to minutes, 10x worse once shard_map
-    partitions the graph for the virtual mesh).
-    Returns the over-subscription flag per lane. Mirrors the host
-    builder (native/codec.c build_table2) in canonical semantics, not
-    in table layout - this decoder needs no tables beyond lim/fb/perm.
+    inbits_ref (npad,) input bits per stream; words_ref (npad *
+    in_words,) input words; tab ((npad + 1) * ROW,) table rows, the
+    last one holding _STATIC_ROW; tok_ref (max_steps, npad); stats_ref
+    (NSTATS, npad). barrier: fence each table build with block barriers
+    (the compiled kernel; the interpreter runs lanes in one thread).
     """
-    nperm = nsym if nperm is None else nperm
-    nrows = (nsym + 7) // 8
-    packed = lens_ref[...][:nrows]
-    nibs = [(packed >> (4 * k)) & 15 for k in range(8)]
-    cnts = [jnp.zeros((s, 128), jnp.int32)]
-    for l in range(1, 16):
-        tot = jnp.zeros((s, 128), jnp.int32)
-        for k in range(8):
-            tot = tot + jnp.sum((nibs[k] == l).astype(jnp.int32), axis=0)
-        cnts.append(tot)
-    kraft = jnp.zeros((s, 128), jnp.int32)
-    for l in range(1, 16):
-        kraft = kraft + (cnts[l] << (15 - l))
-    bad_over = kraft > (1 << 15)
+    I, U = jnp.int32, jnp.uint32
+    lane = base + lax.broadcasted_iota(I, (lanes,), 0)
+    row = lane * ROW
+    srow = npad * ROW
+    wrow = lane * in_words
+    trash = row + T_TRASH
+    col = lax.broadcasted_iota(I, (lanes, 16), 1)
+    inbits = inbits_ref[lane]
 
-    code = jnp.zeros((s, 128), jnp.int32)
-    bidx = jnp.zeros((s, 128), jnp.int32)
-    nxt = [None] * 16
-    big = jnp.full((s, 128), 1 << 29, jnp.int32)
-    lim_ref[0] = jnp.where(mask, big, lim_ref[0])
-    for l in range(1, 16):
-        lim_ref[l] = jnp.where(mask, (code + cnts[l]) << (15 - l),
-                               lim_ref[l])
-        fb_ref[l] = jnp.where(mask, bidx - code, fb_ref[l])
-        nxt[l] = bidx
-        code = (code + cnts[l]) << 1
-        bidx = bidx + cnts[l]
+    def zeros():
+        return jnp.zeros((lanes,), I)
 
-    nxt_arr = jnp.stack([jnp.zeros((s, 128), jnp.int32)] + nxt[1:], 0)
-    rows16 = _rows(16, s)
-    nprows = (nperm + 1) // 2
-    perm_ref[...] = jnp.where(mask[None], 0, perm_ref[...])
-    rowsP = _rows(nprows, s)
-    if unroll:
-        for sym in range(nsym):
-            l = _nib(lens_ref[sym >> 3], sym)
-            has = (l > 0) & mask
-            pos = jnp.sum(jnp.where(rows16 == l[None], nxt_arr, 0),
-                          axis=0)
-            pos = jnp.clip(pos, 0, nperm - 1)
-            m = (rowsP == (pos >> 1)[None]) & has[None]
-            half = (sym << ((pos & 1) << 4))[None]
-            perm_ref[...] = jnp.where(m, perm_ref[...] | half,
-                                      perm_ref[...])
-            nxt_arr = nxt_arr + ((rows16 == l[None])
-                                 & has[None]).astype(jnp.int32)
-        return bad_over
+    def sync():
+        if barrier:
+            plgpu.debug_barrier()
 
-    packed_all = lens_ref[...][:nrows]          # (nrows, s, 128) value
-    rowsN = _rows(nrows, s)
+    def put(idx, val, m):
+        tab[jnp.where(m, idx, trash)] = jnp.broadcast_to(val, (lanes,))
 
-    def body(sym, carry):
-        nxt_a, perm_v = carry
-        row = jnp.sum(jnp.where(rowsN == (sym >> 3), packed_all, 0),
-                      axis=0)
-        l = (row >> ((sym & 7) * 4)) & 15
-        has = (l > 0) & mask
-        pos = jnp.sum(jnp.where(rows16 == l[None], nxt_a, 0), axis=0)
-        pos = jnp.clip(pos, 0, nperm - 1)
-        m = (rowsP == (pos >> 1)[None]) & has[None]
-        half = (sym << ((pos & 1) << 4))[None]
-        perm_v = jnp.where(m, perm_v | half, perm_v)
-        nxt_a = nxt_a + ((rows16 == l[None]) & has[None]).astype(
-            jnp.int32)
-        return nxt_a, perm_v
+    def put16(off, val, m):
+        tab[jnp.where(m[:, None], row[:, None] + off, trash[:, None]) + col] \
+            = val
 
-    _, perm_out = jax.lax.fori_loop(
-        0, nsym, body, (nxt_arr, perm_ref[...]))
-    perm_ref[...] = perm_out
-    return bad_over
+    # ---- bit buffer: s["lo"], s["hi"] uint32; nbits bits buffered;
+    # bitpos bits consumed; bitpos + nbits is a multiple of 32
+    def refill(s):
+        nbits = s["nbits"]
+        need = nbits <= 32
+        wf = (s["bitpos"] + nbits) >> 5
+        w = lax.bitcast_convert_type(
+            words_ref[wrow + jnp.clip(wf, 0, in_words - 1)], U)
+        nb = nbits.astype(U)
+        return dict(s,
+                    lo=jnp.where(need, s["lo"] | _shl(w, nb), s["lo"]),
+                    hi=jnp.where(need, s["hi"] | _shr(w, U(32) - nb),
+                                 s["hi"]),
+                    nbits=jnp.where(need, nbits + 32, nbits))
 
-# per-lane state rows in the `sv` scratch (all handlers are in-place
-# scratch mutators - lax.cond branches returning vector carries hit a
-# Mosaic relayout bug on this toolchain, but ref-mutating branches with
-# no return values compile cleanly; probed on hardware)
-(R_MODE, R_FINAL, R_OUTPOS, R_SREM, R_NLIT, R_NDIST, R_HCLEN, R_IDX,
- R_PREV, R_REP, R_REPVAL, R_DONESTEP, R_WINBASE, R_LO, R_HI, R_NBITS,
- R_BITPOS, R_TOK, R_TMPLEN) = range(19)
-NSTATE = 19
+    def consume(s, n):
+        nu = n.astype(U)
+        return dict(s, lo=_shr(s["lo"], nu) | _shl(s["hi"], U(32) - nu),
+                    hi=_shr(s["hi"], nu), nbits=s["nbits"] - n,
+                    bitpos=s["bitpos"] + n)
 
+    def bits(x, n):
+        mask = jnp.where(n >= 32, U(0xFFFFFFFF),
+                         _shl(jnp.full((lanes,), 1, U), n.astype(U)) - U(1))
+        return (x & mask).astype(I)
 
-def _make_kernel(s, max_steps, nflush, nchunk=None, out_cap=None,
-                 unroll=True):
-    """Build the pass-1 kernel for S sublanes (S*128 streams/cell).
+    def decode(lo, tb, lim_off, fb_off, perm_off, nperm):
+        """One canonical-Huffman decode -> (sym, code_len, bad)."""
+        v15 = _rev15((lo & U(0x7FFF)).astype(I))
+        lim = tab[tb[:, None] + lim_off + col]
+        length = 1 + jnp.sum((v15[:, None] >= lim).astype(I), axis=1)
+        lc = jnp.clip(length, 1, 15)
+        off = (v15 >> (15 - lc)) + tab[tb + fb_off + lc]
+        sym = tab[tb + perm_off + jnp.clip(off, 0, nperm - 1)]
+        return sym, lc, length >= 16
 
-    nchunk/out_cap parameterize the per-stream input chunk count and
-    output byte cap (defaults: the 64 KiB module constants) — the
-    round-3 review's cap-lift item: bigger buckets compile their own
-    kernel variant instead of silently falling back to the host.
-    unroll=False selects the fori_loop canonical-build form (used on
-    the interpret/CPU backend to keep XLA compile times sane)."""
-    if nchunk is None:
-        nchunk = NCHUNK
-    if out_cap is None:
-        out_cap = OUT_CAP
-    import jax.experimental.pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
+    def build(m, lens_off, nsym, valid, lim_off, fb_off, perm_off, nperm):
+        """Masked canonical-code build for lanes in m; -> over-subscribed
+        flag per lane."""
+        sync()
 
-    lanes = s * 128
-    U, I = jnp.uint32, jnp.int32
+        def length(sym):
+            return jnp.where(valid(sym) & m, tab[row + lens_off + sym], 0)
 
-    def kernel(inbits_ref, order_ref, sll_lim, sll_fb, sll_perm,
-               sof_lim, sof_fb, sof_perm,
-               x_hbm, tok_hbm, stats_ref,
-               win, staging, sv, ll_lens, of_lens, plens,
-               ll_lim, ll_fb, ll_perm, of_lim, of_fb, of_perm,
-               pre_lim, pre_fb, pre_perm, tokbuf, xferv, xfers,
-               sem, semt):
-        g = pl.program_id(0)
-        inbits = inbits_ref[...]
+        cnt = lax.fori_loop(
+            0, nsym,
+            lambda sym, c: c + (col == length(sym)[:, None]).astype(I),
+            jnp.zeros((lanes, 16), I))
+        cnt = jnp.where(col == 0, 0, cnt)
+        w = cnt << (15 - col)
+        incl = lax.cumsum(w, axis=1)
+        first = (incl - w) >> (15 - col)
+        bidx = lax.cumsum(cnt, axis=1) - cnt
+        put16(lim_off, jnp.where(col == 0, 1 << 29, incl), m)
+        put16(fb_off, bidx - first, m)
 
-        def z(v=0):
-            return jnp.full((s, 128), v, I)
+        def place(sym, nxt):
+            ln = length(sym)
+            hit = (col == ln[:, None]) & (ln > 0)[:, None]
+            pos = jnp.sum(jnp.where(hit, nxt, 0), axis=1)
+            put(row + perm_off + jnp.clip(pos, 0, nperm - 1), sym, ln > 0)
+            return nxt + hit.astype(I)
 
-        def u32(x):
-            return jax.lax.bitcast_convert_type(x, U)
+        lax.fori_loop(0, nsym, place, bidx)
+        sync()
+        return jnp.max(incl, axis=1) > (1 << 15)
 
-        def i32(x):
-            return jax.lax.bitcast_convert_type(x, I)
+    # ---- block header, precode lengths, code-length RLE
+    def header(s, step):
+        s = refill(s)
+        mode, final, idx = s["mode"], s["final"], s["idx"]
+        nlit, ndist, hclen = s["nlit"], s["ndist"], s["hclen"]
+        prev, rep, repval = s["prev"], s["rep"], s["repval"]
+        active = mode < DONE
+        mS = mode == BLKSTART
+        b3 = (s["lo"] & U(7)).astype(I)
+        newfin = jnp.where(mS, b3 & 1, final)
+        btype = b3 >> 1
+        s = consume(s, jnp.where(mS, 3, 0))
+        bad = mS & (btype == 3)
 
-        # ---- bit-buffer state <-> scratch
-        def load_st():
-            return (u32(sv[R_LO]), u32(sv[R_HI]), sv[R_NBITS],
-                    sv[R_BITPOS], sv[R_WINBASE])
+        mSt = mS & (btype == 0)                      # stored
+        s = consume(s, jnp.where(mSt, (8 - (s["bitpos"] & 7)) & 7, 0))
+        s = refill(s)
+        slen = (s["lo"] & U(0xFFFF)).astype(I)
+        snlen = (s["lo"] >> U(16)).astype(I) & 0xFFFF
+        bad = bad | (mSt & (slen != (snlen ^ 0xFFFF)))
+        s = consume(s, jnp.where(mSt, 32, 0))
+        srem = jnp.where(mSt, slen, s["srem"])
 
-        def store_st(st):
-            sv[R_LO] = i32(st[0])
-            sv[R_HI] = i32(st[1])
-            sv[R_NBITS] = st[2]
-            sv[R_BITPOS] = st[3]
+        mStat = mS & (btype == 1)                    # static
+        mDyn = mS & (btype == 2)                     # dynamic
+        tb = jnp.where(mStat, srow, jnp.where(mDyn, row, s["tb"]))
+        hl = (s["lo"] & U(31)).astype(I)
+        s = consume(s, jnp.where(mDyn, 5, 0))
+        hd = (s["lo"] & U(31)).astype(I)
+        s = consume(s, jnp.where(mDyn, 5, 0))
+        hc = (s["lo"] & U(15)).astype(I)
+        s = consume(s, jnp.where(mDyn, 4, 0))
+        nlit = jnp.where(mDyn, 257 + hl, nlit)
+        ndist = jnp.where(mDyn, 1 + hd, ndist)
+        hclen = jnp.where(mDyn, 4 + hc, hclen)
+        bad = bad | (mDyn & ((nlit > 286) | (ndist > 30)))
+        idx = jnp.where(mDyn, 0, idx)
+        prev = jnp.where(mDyn, -1, prev)
+        rep = jnp.where(mDyn, 0, rep)
 
-        def refill_buf(st):
-            lo, hi, nbits, bitpos, winbase = st
-            need = nbits <= 32
-            wf = (bitpos + nbits) >> 5
-            rel = jnp.clip(wf - winbase, 0, WIN_ROWS - 1)
-            w = u32(_gather(win, rel, WIN_ROWS, s))
-            nb = nbits.astype(U)
-            lo2 = lo | _shl(w, nb)
-            hi2 = hi | jnp.where(nbits == 0, U(0), _shr(w, U(32) - nb))
-            return (jnp.where(need, lo2, lo), jnp.where(need, hi2, hi),
-                    jnp.where(need, nbits + 32, nbits), bitpos, winbase)
+        after = jnp.where(newfin == 1, DONE, BLKSTART)
+        mode = jnp.where(mSt, jnp.where(slen > 0, STORED, after), mode)
+        mode = jnp.where(mStat, BODY, mode)
+        mode = jnp.where(mDyn, PRELEN, mode)
+        # a final stored block of length 0 ends the stream here
+        donestep = jnp.where(mSt & (slen == 0) & (newfin == 1), step,
+                             s["donestep"])
 
-        def consume(st, n):
-            lo, hi, nbits, bitpos, winbase = st
-            nu = n.astype(U)
-            lo2 = _shr(lo, nu) | _shl(hi, U(32) - nu)
-            hi2 = _shr(hi, nu)
-            return (lo2, hi2, nbits - n, bitpos + n, winbase)
+        # PRELEN: one 3-bit precode length per step
+        mP = active & (mode == PRELEN) & ~mS
+        sym_at = tab[srow + T_ORDER + jnp.clip(idx, 0, 18)]
+        put(row + T_PLENS + sym_at, (s["lo"] & U(7)).astype(I), mP)
+        s = consume(s, jnp.where(mP, 3, 0))
+        idx = jnp.where(mP, idx + 1, idx)
+        mPd = mP & (idx >= hclen)
+        pre_bad = lax.cond(
+            _count(mPd) > 0,
+            lambda: build(mPd, T_PLENS, 19,
+                          lambda sym: tab[srow + T_INV_ORDER + sym] < hclen,
+                          T_PRE_LIM, T_PRE_FB, T_PRE_PERM, 19),
+            lambda: jnp.zeros((lanes,), bool))
+        bad = bad | (mPd & pre_bad)
+        mode = jnp.where(mPd, LENS, mode)
+        idx = jnp.where(mPd, 0, idx)
 
-        def bits(lo, n):
-            mask = _shl(jnp.full((s, 128), 1, U), n.astype(U))
-            mask = jnp.where(n >= 32, U(0xFFFFFFFF), mask - U(1))
-            return (lo & mask).astype(I)
+        # LENS: code-length RLE, one length written per step
+        s = refill(s)
+        mL = active & (mode == LENS) & ~mS & ~mP
+        drain = mL & (rep > 0)
+        dec = mL & ~drain
+        sym, clen, badc = decode(s["lo"], row, T_PRE_LIM, T_PRE_FB,
+                                 T_PRE_PERM, 19)
+        s = consume(s, jnp.where(dec, clen, 0))
+        e16 = dec & (sym == 16)
+        e17 = dec & (sym == 17)
+        e18 = dec & (sym == 18)
+        elit = dec & (sym <= 15)
+        rbits = jnp.where(e16, 2, jnp.where(e17, 3, jnp.where(e18, 7, 0)))
+        rv = bits(s["lo"], rbits)
+        s = consume(s, jnp.where(dec, rbits, 0))
+        newrep = jnp.where(e16 | e17, 3 + rv, jnp.where(e18, 11 + rv, 0))
+        repval = jnp.where(e16, prev, jnp.where(e17 | e18, 0, repval))
+        bad = bad | (dec & badc) | (e16 & (prev < 0))
+        bad = bad | (dec & ~elit & (idx + newrep > nlit + ndist))
+        wm = elit | drain
+        dst = jnp.where(idx < nlit, idx, 288 + idx - nlit)
+        put(row + T_LENS + jnp.clip(dst, 0, 319),
+            jnp.where(elit, sym, repval), wm)
+        idx = jnp.where(wm, idx + 1, idx)
+        rep = jnp.where(drain, rep - 1, jnp.where(dec, newrep, rep))
+        prev = jnp.where(elit, sym, prev)
+        mode = jnp.where(mL & (idx >= nlit + ndist), AWAITBUILD, mode)
+        mode = jnp.where(bad, BAD, mode)
+        return dict(s, mode=mode, final=newfin, idx=idx, nlit=nlit,
+                    ndist=ndist, hclen=hclen, prev=prev, rep=rep,
+                    repval=repval, srem=srem, tb=tb, donestep=donestep)
 
-        # ---- window refill: fetch chunks ck, ck+1 per active lane
-        def refill_window():
-            bitpos, nbits = sv[R_BITPOS], sv[R_NBITS]
-            active = sv[R_MODE] < DONE
-            wf = (bitpos + nbits) >> 5
-            ck = jnp.clip(wf // CHUNK_STRIDE, 0, nchunk - 1)
-            ckx = jnp.where(active, ck, nchunk)
-            xferv[...] = ckx
-            cp = pltpu.make_async_copy(xferv, xfers, sem)
-            cp.start()
-            cp.wait()
+    def build_tables(s):
+        mW = s["mode"] == AWAITBUILD
+        b1 = build(mW, T_LENS, 288, lambda sym: sym < s["nlit"],
+                   T_LL_LIM, T_LL_FB, T_LL_PERM, 288)
+        b2 = build(mW, T_LENS + 288, 32, lambda sym: sym < s["ndist"],
+                   T_OF_LIM, T_OF_FB, T_OF_PERM, 32)
+        return dict(s, mode=jnp.where(mW, jnp.where(b1 | b2, BAD, BODY),
+                                      s["mode"]))
 
-            def issue(i, _):
-                si, li = i // 128, i % 128
-                c = xfers[si, li]
+    # ---- block body: one literal, end of block or match per step
+    def body(s, tokv, step):
+        s = refill(s)
+        mB = s["mode"] == BODY
+        final, outpos = s["final"], s["outpos"]
+        sym, clen, badc = decode(s["lo"], s["tb"], T_LL_LIM, T_LL_FB,
+                                 T_LL_PERM, 288)
+        is_lit = mB & (sym < 256)
+        is_eob = mB & (sym == 256)
+        is_len = mB & (sym > 256)
+        eb, lbase = _len_extra(sym)
+        length = lbase + bits(_shr(s["lo"], clen.astype(U)), eb)
+        s = consume(s, jnp.where(mB, clen, 0) + jnp.where(is_len, eb, 0))
+        bad = mB & (badc | (sym > 285))
+        bad = bad | (is_lit & (outpos + 1 > out_cap))
+        lit_ok = is_lit & ~bad
+        tokv = jnp.where(lit_ok, (KIND_LIT << KIND_SHIFT) | sym, tokv)
+        outpos = jnp.where(lit_ok, outpos + 1, outpos)
+        mode = jnp.where(is_eob, jnp.where(final == 1, DONE, BLKSTART),
+                         s["mode"])
+        donestep = jnp.where(is_eob & (final == 1), step, s["donestep"])
+        mode = jnp.where(bad, BAD, mode)
+        mlen = is_len & ~bad
+        s = dict(s, mode=mode, outpos=outpos, donestep=donestep)
 
-                @pl.when(c < nchunk)
-                def _():
-                    pltpu.make_async_copy(
-                        x_hbm.at[g, i, c], staging.at[0, si, li],
-                        sem).start()
-                return 0
+        def dist(s, tokv):
+            s = refill(s)
+            outpos = s["outpos"]
+            dsym, dlen, dbadc = decode(s["lo"], s["tb"], T_OF_LIM, T_OF_FB,
+                                       T_OF_PERM, 32)
+            deb, dbase = _dist_extra(dsym)
+            d = dbase + bits(_shr(s["lo"], dlen.astype(U)), deb)
+            s = consume(s, jnp.where(mlen, dlen + deb, 0))
+            badd = mlen & (dbadc | (dsym > 29) | (d > outpos)
+                           | (outpos + length > out_cap))
+            ok = mlen & ~badd
+            tokv = jnp.where(ok, (KIND_MATCH << KIND_SHIFT) | (length - 3)
+                             | ((d - 1) << 8), tokv)
+            return dict(s, outpos=jnp.where(ok, outpos + length, outpos),
+                        mode=jnp.where(badd, BAD, s["mode"])), tokv
 
-            jax.lax.fori_loop(0, lanes, issue, 0)
+        return lax.cond(_count(mlen) > 0, dist, lambda s, t: (s, t),
+                        s, tokv)
 
-            def drain(i, _):
-                si, li = i // 128, i % 128
-                c = xfers[si, li]
+    def stored(s, tokv, step):
+        s = refill(s)
+        mV = s["mode"] == STORED
+        byte = (s["lo"] & U(0xFF)).astype(I)
+        s = consume(s, jnp.where(mV, 8, 0))
+        bad = mV & (s["outpos"] + 1 > out_cap)
+        ok = mV & ~bad
+        tokv = jnp.where(ok, (KIND_LIT << KIND_SHIFT) | byte, tokv)
+        srem = jnp.where(mV, s["srem"] - 1, s["srem"])
+        end = mV & (srem == 0)
+        mode = jnp.where(end, jnp.where(s["final"] == 1, DONE, BLKSTART),
+                         s["mode"])
+        return dict(s, outpos=jnp.where(ok, s["outpos"] + 1, s["outpos"]),
+                    srem=srem, mode=jnp.where(bad, BAD, mode),
+                    donestep=jnp.where(end & (s["final"] == 1), step,
+                                       s["donestep"])), tokv
 
-                @pl.when(c < nchunk)
-                def _():
-                    pltpu.make_async_copy(
-                        x_hbm.at[g, i, c], staging.at[0, si, li],
-                        sem).wait()
-                return 0
+    # ---- step loop
+    def step_fn(carry):
+        step, s, _ = carry
+        s = lax.cond(_count(s["mode"] <= LENS) > 0,
+                     lambda s: header(s, step), lambda s: s, s)
+        s = lax.cond(_count(s["mode"] == AWAITBUILD) > 0, build_tables,
+                     lambda s: s, s)
+        tokv = zeros()
+        s, tokv = lax.cond(_count(s["mode"] == BODY) > 0,
+                           lambda s, t: body(s, t, step),
+                           lambda s, t: (s, t), s, tokv)
+        s, tokv = lax.cond(_count(s["mode"] == STORED) > 0,
+                           lambda s, t: stored(s, t, step),
+                           lambda s, t: (s, t), s, tokv)
+        # consumed past the end of the input: malformed
+        over = (s["mode"] < DONE) & (s["bitpos"] > inbits)
+        s = dict(s, mode=jnp.where(over, BAD, s["mode"]))
+        tok_ref[step, pl.ds(base, lanes)] = tokv
+        return step + 1, s, _count(s["mode"] < DONE)
 
-            jax.lax.fori_loop(0, lanes, drain, 0)
-            for si in range(s):
-                win[:, si, :] = staging[0, si].T
-            sv[R_WINBASE] = jnp.where(active, ck * CHUNK_STRIDE,
-                                      sv[R_WINBASE])
-
-        # ================== handlers (scratch mutators) ==================
-        def make_hdr_fn(step):
-            def hdr_fn():
-                mode = sv[R_MODE]
-                final = sv[R_FINAL]
-                nlit, ndist = sv[R_NLIT], sv[R_NDIST]
-                hclen, idx = sv[R_HCLEN], sv[R_IDX]
-                prev, rep, repval = sv[R_PREV], sv[R_REP], sv[R_REPVAL]
-                st = refill_buf(load_st())
-                active = mode < DONE
-                mS = active & (mode == BLKSTART)
-                b3 = (st[0] & U(7)).astype(I)
-                newfin = jnp.where(mS, b3 & 1, final)
-                btype = b3 >> 1
-                st = consume(st, jnp.where(mS, 3, 0))
-                badh = mS & (btype == 3)
-
-                # stored
-                mSt = mS & (btype == 0)
-                pad = (8 - (st[3] & 7)) & 7
-                st = consume(st, jnp.where(mSt, pad, 0))
-                st = refill_buf(st)
-                slen = (st[0] & U(0xFFFF)).astype(I)
-                snlen = (st[0] >> U(16)).astype(I) & 0xFFFF
-                badh = badh | (mSt & (slen != (snlen ^ 0xFFFF)))
-                st = consume(st, jnp.where(mSt, 32, 0))
-                sv[R_SREM] = jnp.where(mSt, slen, sv[R_SREM])
-
-                # static: install canonical constants
-                mStat = mS & (btype == 1)
-
-                def inst():
-                    msk = mStat[None]
-                    ll_lim[...] = jnp.where(msk, sll_lim[...], ll_lim[...])
-                    ll_fb[...] = jnp.where(msk, sll_fb[...], ll_fb[...])
-                    ll_perm[...] = jnp.where(msk, sll_perm[...],
-                                             ll_perm[...])
-                    of_lim[...] = jnp.where(msk, sof_lim[...], of_lim[...])
-                    of_fb[...] = jnp.where(msk, sof_fb[...], of_fb[...])
-                    of_perm[...] = jnp.where(msk, sof_perm[...],
-                                             of_perm[...])
-
-                jax.lax.cond(jnp.any(mStat), inst, lambda: None)
-
-                # dynamic header counts
-                mDyn = mS & (btype == 2)
-                hl = (st[0] & U(31)).astype(I)
-                st = consume(st, jnp.where(mDyn, 5, 0))
-                hd = (st[0] & U(31)).astype(I)
-                st = consume(st, jnp.where(mDyn, 5, 0))
-                hc = (st[0] & U(15)).astype(I)
-                st = consume(st, jnp.where(mDyn, 4, 0))
-                nlit = jnp.where(mDyn, 257 + hl, nlit)
-                ndist = jnp.where(mDyn, 1 + hd, ndist)
-                hclen = jnp.where(mDyn, 4 + hc, hclen)
-                badh = badh | (mDyn & ((nlit > 286) | (ndist > 30)))
-                idx = jnp.where(mDyn, 0, idx)
-                prev = jnp.where(mDyn, -1, prev)
-                rep = jnp.where(mDyn, 0, rep)
-
-                def zero_tabs():
-                    mk = mDyn[None]
-                    plens[...] = jnp.where(mk, 0, plens[...])
-                    ll_lens[...] = jnp.where(mk, 0, ll_lens[...])
-                    of_lens[...] = jnp.where(mk, 0, of_lens[...])
-
-                jax.lax.cond(jnp.any(mDyn), zero_tabs, lambda: None)
-
-                after = jnp.where(newfin == 1, DONE, BLKSTART)
-                mode = jnp.where(mSt, jnp.where(slen > 0, STORED, after),
-                                 mode)
-                mode = jnp.where(mStat, BODY, mode)
-                mode = jnp.where(mDyn, PRELEN, mode)
-                final = newfin
-                # LEN==0 stored final block finishes right here
-                sv[R_DONESTEP] = jnp.where(mSt & (slen == 0)
-                                           & (newfin == 1), step,
-                                           sv[R_DONESTEP])
-
-                # ---- PRELEN: one 3-bit precode length per step
-                mP = active & (mode == PRELEN) & ~mS
-                v3 = (st[0] & U(7)).astype(I)
-                oidx = _gather(order_ref, jnp.clip(idx, 0, 18), 19, s)
-                _nibble_write(plens, oidx, v3, mP, 3, s)
-                st = consume(st, jnp.where(mP, 3, 0))
-                idx = jnp.where(mP, idx + 1, idx)
-                mPd = mP & (idx >= hclen)
-
-                def pre_build():
-                    b = _build_canonical(plens, 19, pre_lim, pre_fb,
-                                         pre_perm, mPd, s,
-                                         unroll=unroll)
-                    sv[R_MODE] = jnp.where(mPd & b, BAD, sv[R_MODE])
-
-                # store mode now so pre_build's BAD write composes
-                sv[R_MODE] = mode
-                jax.lax.cond(jnp.any(mPd), pre_build, lambda: None)
-                mode = sv[R_MODE]
-                badh = badh & (mode != BAD)  # keep badh for non-built
-                mode = jnp.where(mPd & (mode != BAD), LENS, mode)
-                idx = jnp.where(mPd, 0, idx)
-
-                # ---- LENS: RLE code-length decode, one write per step
-                st = refill_buf(st)
-                mL = active & (mode == LENS) & ~mS & ~mP
-                drain2 = mL & (rep > 0)
-                dec = mL & ~drain2
-                sym, clen, badc = _decode_canonical(
-                    st[0], pre_lim, pre_fb, pre_perm, 19, s)
-                st = consume(st, jnp.where(dec, clen, 0))
-                e16 = dec & (sym == 16)
-                e17 = dec & (sym == 17)
-                e18 = dec & (sym == 18)
-                elit = dec & (sym <= 15)
-                rbits = jnp.where(e16, 2, jnp.where(e17, 3,
-                                  jnp.where(e18, 7, 0)))
-                rv = bits(st[0], rbits)
-                st = consume(st, jnp.where(dec, rbits, 0))
-                newrep = jnp.where(e16 | e17, 3 + rv,
-                                   jnp.where(e18, 11 + rv, 0))
-                repval = jnp.where(e16, prev,
-                                   jnp.where(e17 | e18, 0, repval))
-                badh = badh | (dec & badc) | (e16 & (prev < 0))
-                badh = badh | (dec & ~elit
-                               & (idx + newrep > nlit + ndist))
-                wval = jnp.where(elit, sym, repval)
-                wmask = elit | drain2
-                _nibble_write(ll_lens, jnp.clip(idx, 0, 287), wval,
-                              wmask & (idx < nlit), 36, s)
-                _nibble_write(of_lens, jnp.clip(idx - nlit, 0, 31), wval,
-                              wmask & (idx >= nlit), 4, s)
-                idx = jnp.where(wmask, idx + 1, idx)
-                rep = jnp.where(drain2, rep - 1,
-                                jnp.where(dec, newrep, rep))
-                prev = jnp.where(elit, sym, prev)
-                # overrun guard above ensures rep drains to exactly 0
-                mLd = mL & (idx >= nlit + ndist)
-                mode = jnp.where(mLd, AWAITBUILD, mode)
-                mode = jnp.where(badh, BAD, mode)
-
-                sv[R_MODE] = mode
-                sv[R_FINAL] = final
-                sv[R_NLIT] = nlit
-                sv[R_NDIST] = ndist
-                sv[R_HCLEN] = hclen
-                sv[R_IDX] = idx
-                sv[R_PREV] = prev
-                sv[R_REP] = rep
-                sv[R_REPVAL] = repval
-                store_st(st)
-
-            return hdr_fn
-
-        def build_fn():
-            mW = sv[R_MODE] == AWAITBUILD
-            b1 = _build_canonical(ll_lens, 288, ll_lim, ll_fb,
-                                  ll_perm, mW, s, unroll=unroll)
-            b2 = _build_canonical(of_lens, 30, of_lim, of_fb,
-                                  of_perm, mW, s, nperm=32,
-                                  unroll=unroll)
-            sv[R_MODE] = jnp.where(mW, jnp.where(b1 | b2, BAD, BODY),
-                                   sv[R_MODE])
-
-        def make_body_fn(step):
-            def dist_fn():
-                # second phase, fired only when some lane hit a match
-                tmplen = sv[R_TMPLEN]
-                outpos = sv[R_OUTPOS]
-                mM = (sv[R_MODE] == BODY) & (tmplen > 0)
-                st = refill_buf(load_st())
-                dsym, dlen, dbadc = _decode_canonical(
-                    st[0], of_lim, of_fb, of_perm, 32, s)
-                deb, dbase = _dist_extra(dsym)
-                dextra = bits(_shr(st[0], dlen.astype(U)), deb)
-                dist = dbase + dextra
-                st = consume(st, jnp.where(mM, dlen + deb, 0))
-                badd = mM & (dbadc | (dsym > 29) | (dist > outpos))
-                newout = outpos + tmplen
-                badd = badd | (mM & (newout > out_cap))
-                sv[R_TOK] = jnp.where(
-                    mM & ~badd,
-                    (KIND_MATCH << KIND_SHIFT) | (tmplen - 3)
-                    | ((dist - 1) << 8), sv[R_TOK])
-                sv[R_OUTPOS] = jnp.where(mM & ~badd, newout, outpos)
-                sv[R_MODE] = jnp.where(badd, BAD, sv[R_MODE])
-                sv[R_TMPLEN] = jnp.where(mM, 0, tmplen)
-                store_st(st)
-
-            def body_fn():
-                mode = sv[R_MODE]
-                outpos = sv[R_OUTPOS]
-                final = sv[R_FINAL]
-                mB = mode == BODY
-                st = refill_buf(load_st())
-                sym, clen, badc = _decode_canonical(
-                    st[0], ll_lim, ll_fb, ll_perm, 288, s)
-                is_lit = mB & (sym < 256)
-                is_eob = mB & (sym == 256)
-                is_len = mB & (sym > 256)
-                badb = mB & (badc | (sym > 285))
-                eb, lbase = _len_extra(sym)
-                extra = bits(_shr(st[0], clen.astype(U)), eb)
-                length = lbase + extra
-                st = consume(st, jnp.where(mB, clen, 0)
-                             + jnp.where(is_len, eb, 0))
-                newout = outpos + jnp.where(is_lit, 1, 0)
-                badb = badb | (is_lit & (newout > out_cap))
-                sv[R_TOK] = jnp.where(
-                    is_lit & ~badb, (KIND_LIT << KIND_SHIFT) | sym,
-                    sv[R_TOK])
-                sv[R_OUTPOS] = jnp.where(is_lit & ~badb, newout, outpos)
-                fin_done = is_eob & (final == 1)
-                mode = jnp.where(is_eob,
-                                 jnp.where(final == 1, DONE, BLKSTART),
-                                 mode)
-                sv[R_DONESTEP] = jnp.where(fin_done, step,
-                                           sv[R_DONESTEP])
-                sv[R_MODE] = jnp.where(badb, BAD, mode)
-                mlen = is_len & ~badb
-                sv[R_TMPLEN] = jnp.where(mlen, length, 0)
-                store_st(st)
-                jax.lax.cond(jnp.any(mlen), dist_fn, lambda: None)
-
-            return body_fn
-
-        def make_stored_fn(step):
-            def stored_fn():
-                mode = sv[R_MODE]
-                mV = mode == STORED
-                final = sv[R_FINAL]
-                st = refill_buf(load_st())
-                byte = (st[0] & U(0xFF)).astype(I)
-                st = consume(st, jnp.where(mV, 8, 0))
-                newout = sv[R_OUTPOS] + 1
-                badv = mV & (newout > out_cap)
-                sv[R_TOK] = jnp.where(mV & ~badv,
-                                      (KIND_LIT << KIND_SHIFT) | byte,
-                                      sv[R_TOK])
-                sv[R_OUTPOS] = jnp.where(mV & ~badv, newout,
-                                         sv[R_OUTPOS])
-                srem = jnp.where(mV, sv[R_SREM] - 1, sv[R_SREM])
-                sv[R_SREM] = srem
-                done_now = mV & (srem == 0) & (final == 1)
-                mode = jnp.where(mV & (srem == 0),
-                                 jnp.where(final == 1, DONE, BLKSTART),
-                                 mode)
-                sv[R_DONESTEP] = jnp.where(done_now, step,
-                                           sv[R_DONESTEP])
-                sv[R_MODE] = jnp.where(badv, BAD, mode)
-                store_st(st)
-
-            return stored_fn
-
-        # ============================ step loop ============================
-        def step_fn(carry):
-            step, _ = carry
-            sv[R_TOK] = z()
-
-            jax.lax.cond(step % REFILL_EVERY == 0, refill_window,
-                         lambda: None)
-
-            mode = sv[R_MODE]
-            active = mode < DONE
-            in_hdr = active & (mode <= LENS)
-            # batch header work like the table build: header-phase lanes
-            # stall until a quorum gathers (or nothing else runs), so
-            # the header handler's big scatters stay off the common path
-            nH = jnp.sum(in_hdr.astype(I))
-            nRun = jnp.sum(((mode == BODY) | (mode == STORED)
-                            ).astype(I))
-            # periodic drain bounds the stall a lane can accumulate
-            # waiting for quorum (divergent lanes reach headers at
-            # different steps)
-            fire_hdr = (nH > 0) & ((nH >= lanes // 8) | (nRun == 0)
-                                   | (step % 8 == 0))
-            jax.lax.cond(fire_hdr, make_hdr_fn(step), lambda: None)
-
-            mode = sv[R_MODE]
-            mW = mode == AWAITBUILD
-            nW = jnp.sum(mW.astype(I))
-            nact = jnp.sum((mode < DONE).astype(I))
-            fire = (nW > 0) & ((nW >= nact) | (nW >= lanes // 4))
-            jax.lax.cond(fire, build_fn, lambda: None)
-
-            jax.lax.cond(jnp.any(sv[R_MODE] == BODY), make_body_fn(step),
-                         lambda: None)
-            jax.lax.cond(jnp.any(sv[R_MODE] == STORED),
-                         make_stored_fn(step), lambda: None)
-
-            # consumed past the stream end -> malformed
-            over = (sv[R_MODE] < DONE) & (sv[R_BITPOS] > inbits)
-            sv[R_MODE] = jnp.where(over, BAD, sv[R_MODE])
-
-            _store_row(tokbuf, step % TOK_CHUNK, sv[R_TOK], TOK_CHUNK, s)
-
-            def flush():
-                cp = pltpu.make_async_copy(
-                    tokbuf, tok_hbm.at[g, step // TOK_CHUNK], semt)
-                cp.start()
-                cp.wait()
-                tokbuf[...] = jnp.zeros((TOK_CHUNK, s, 128), I)
-
-            jax.lax.cond(step % TOK_CHUNK == TOK_CHUNK - 1, flush,
-                         lambda: None)
-
-            nact2 = jnp.sum((sv[R_MODE] < DONE).astype(I))
-            return step + 1, nact2
-
-        def cond_fn(carry):
-            step, nact = carry
-            return (step < max_steps) & (nact > 0)
-
-        tokbuf[...] = jnp.zeros((TOK_CHUNK, s, 128), I)
-        sv[...] = jnp.zeros((NSTATE, s, 128), I)
-        sv[R_PREV] = z(-1)
-        sv[R_DONESTEP] = z(-1)
-        laststep, _ = jax.lax.while_loop(
-            cond_fn, step_fn, (jnp.int32(0), jnp.int32(1)))
-
-        def final_flush():
-            cp = pltpu.make_async_copy(
-                tokbuf, tok_hbm.at[g, laststep // TOK_CHUNK], semt)
-            cp.start()
-            cp.wait()
-
-        jax.lax.cond(laststep % TOK_CHUNK != 0, final_flush,
-                     lambda: None)
-
-        stats_ref[0] = sv[R_MODE]
-        stats_ref[1] = sv[R_OUTPOS]
-        stats_ref[2] = sv[R_DONESTEP]
-        stats_ref[3] = sv[R_BITPOS]
-        stats_ref[4] = jnp.full((s, 128), laststep, I)
-        stats_ref[5] = z()
-        stats_ref[6] = z()
-        stats_ref[7] = z()
-
-    return kernel
+    s0 = {k: zeros() for k in (
+        "final", "outpos", "srem", "nlit", "ndist", "hclen", "idx", "rep",
+        "repval", "nbits", "bitpos", "tb")}
+    s0.update(mode=jnp.where(inbits > 0, BLKSTART, BAD), prev=zeros() - 1,
+              donestep=zeros() - 1, lo=jnp.zeros((lanes,), U),
+              hi=jnp.zeros((lanes,), U))
+    laststep, s, _ = lax.while_loop(
+        lambda c: (c[0] < max_steps) & (c[2] > 0), step_fn,
+        (jnp.int32(0), s0, jnp.int32(1)))
+    for r, v in ((S_MODE, s["mode"]), (S_OUTPOS, s["outpos"]),
+                 (S_DONESTEP, s["donestep"]), (S_BITPOS, s["bitpos"]),
+                 (S_LASTSTEP, zeros() + laststep)):
+        stats_ref[r, pl.ds(base, lanes)] = v
 
 
 # ============================== host wrapper ==============================
-@functools.lru_cache(maxsize=4)
-def _jit_pass1(groups, s, max_steps, in_cap=IN_CAP, out_cap=OUT_CAP):
-    import jax.experimental.pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
+def _next_pow2(n: int) -> int:
+    return 1 << max(0, int(n) - 1).bit_length()
 
-    lanes = s * 128
-    nflush = max_steps // TOK_CHUNK
-    nchunk = in_cap // (4 * CHUNK_STRIDE) + 6
-    interp = jax.default_backend() == "cpu"
-    kernel = _make_kernel(s, max_steps, nflush, nchunk, out_cap,
-                          unroll=not interp)
 
-    def run(inbits, order, sll_lim, sll_fb, sll_perm, sof_lim, sof_fb,
-            sof_perm, words):
-        grid_spec = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=0,
-            grid=(groups,),
-            in_specs=[
-                pl.BlockSpec((1, s, 128), lambda g: (g, 0, 0),
-                             memory_space=pltpu.VMEM),   # inbits
-                pl.BlockSpec(memory_space=pltpu.VMEM),   # order
-                pl.BlockSpec(memory_space=pltpu.VMEM),   # static tables x6
-                pl.BlockSpec(memory_space=pltpu.VMEM),
-                pl.BlockSpec(memory_space=pltpu.VMEM),
-                pl.BlockSpec(memory_space=pltpu.VMEM),
-                pl.BlockSpec(memory_space=pltpu.VMEM),
-                pl.BlockSpec(memory_space=pltpu.VMEM),
-                pl.BlockSpec(memory_space=pl.ANY),       # words
-            ],
-            out_specs=[
-                pl.BlockSpec(memory_space=pl.ANY),       # tokens
-                pl.BlockSpec((1, 8, s, 128), lambda g: (g, 0, 0, 0),
-                             memory_space=pltpu.VMEM),   # stats
-            ],
-            scratch_shapes=[
-                pltpu.VMEM((WIN_ROWS, s, 128), jnp.int32),      # win
-                pltpu.VMEM((1, s, 128, CHUNK_WORDS), jnp.int32),  # staging
-                pltpu.VMEM((NSTATE, s, 128), jnp.int32),  # sv (lane state)
-                pltpu.VMEM((36, s, 128), jnp.int32),    # ll_lens (4b x8)
-                pltpu.VMEM((4, s, 128), jnp.int32),     # of_lens (4b x8)
-                pltpu.VMEM((3, s, 128), jnp.int32),     # plens (4b x8)
-                pltpu.VMEM((16, s, 128), jnp.int32),    # ll_lim
-                pltpu.VMEM((16, s, 128), jnp.int32),    # ll_fb
-                pltpu.VMEM((144, s, 128), jnp.int32),   # ll_perm (packed)
-                pltpu.VMEM((16, s, 128), jnp.int32),    # of_lim
-                pltpu.VMEM((16, s, 128), jnp.int32),    # of_fb
-                pltpu.VMEM((16, s, 128), jnp.int32),    # of_perm (packed)
-                pltpu.VMEM((16, s, 128), jnp.int32),    # pre_lim
-                pltpu.VMEM((16, s, 128), jnp.int32),    # pre_fb
-                pltpu.VMEM((10, s, 128), jnp.int32),    # pre_perm (packed)
-                pltpu.VMEM((TOK_CHUNK, s, 128), jnp.int32),  # tokbuf
-                pltpu.VMEM((s, 128), jnp.int32),        # xferv
-                pltpu.SMEM((s, 128), jnp.int32),        # xfers
-                pltpu.SemaphoreType.DMA,                 # sem
-                pltpu.SemaphoreType.DMA,                 # semt
-            ],
-        )
+def layout(n: int, multiple: int = 1) -> tuple[int, int]:
+    """(programs, lanes) for a batch of n streams over `multiple`
+    devices. A program's step costs about the same whatever its lane
+    count while the card has room for more programs, so streams are
+    spread one per program up to MAX_PROGRAMS per device and packed
+    more densely only beyond that (PERF.md has the sweep). Lanes and
+    programs per device are powers of two, which bounds the compiled
+    variants; a batch smaller than one program is padded to one."""
+    per_device = -(-max(n, 1) // multiple)
+    lanes = min(MAX_LANES, _next_pow2(-(-per_device // MAX_PROGRAMS)))
+    return _next_pow2(-(-per_device // lanes)) * multiple, lanes
 
-        def wrapped(inbits_blk, order_b, a, b, c, d, e, f, words_any,
-                    tok_out, stats_out, *scr):
-            kernel(inbits_blk.at[0], order_b, a, b, c, d, e, f,
-                   words_any, tok_out, stats_out.at[0], *scr)
 
-        return pl.pallas_call(
-            wrapped,
-            grid_spec=grid_spec,
-            out_shape=[
-                jax.ShapeDtypeStruct((groups, nflush, TOK_CHUNK, s, 128),
-                                     jnp.int32),
-                jax.ShapeDtypeStruct((groups, 8, s, 128), jnp.int32),
-            ],
-            interpret=interp,
-        )(inbits, order, sll_lim, sll_fb, sll_perm, sof_lim, sof_fb,
-          sof_perm, words)
+def pack_streams(streams: list[bytes], npad: int, in_cap: int = IN_CAP):
+    """Kernel inputs: inbits (npad,) int32 bits per stream and words
+    (npad, in_cap // 4 + 2) int32, one zero-padded stream per row (the
+    two spare words cover the decoder's peek past the end). Streams
+    that are empty or over in_cap are left out: ok[i] False."""
+    in_words = in_cap // 4 + 2
+    buf = np.zeros((npad, in_words * 4), np.uint8)
+    inbits = np.zeros(npad, np.int32)
+    ok = []
+    for i, data in enumerate(streams):
+        ok.append(0 < len(data) <= in_cap)
+        if ok[-1]:
+            buf[i, :len(data)] = np.frombuffer(data, np.uint8)
+            inbits[i] = len(data) * 8
+    return inbits, buf.view("<i4"), ok
+
+
+@functools.lru_cache(maxsize=8)
+def _jit_pass1(programs: int, lanes: int, max_steps: int,
+               in_cap: int = IN_CAP, out_cap: int = OUT_CAP,
+               interpret: bool = False):
+    """jit: (inbits (npad,), words (npad, in_words)) -> (tok (max_steps,
+    npad) int32, stats (NSTATS, npad) int32), npad = programs * lanes.
+    Unwritten token rows stay 0 (NOP)."""
+    if not interpret and jax.default_backend() != "gpu":
+        raise RuntimeError(
+            "the pass-1 decoder kernel needs a CUDA GPU (JAX backend "
+            f"{jax.default_backend()!r}); tests pass interpret=True")
+    npad = programs * lanes
+    in_words = in_cap // 4 + 2
+
+    def kernel(inbits_ref, words_ref, tab_in, tok_in, tab_ref, tok_ref,
+               stats_ref):
+        del tab_in, tok_in          # aliased to tab_ref, tok_ref
+        _decode_lanes(inbits_ref, words_ref, tab_ref, tok_ref, stats_ref,
+                     pl.program_id(0) * lanes, lanes, npad=npad,
+                     in_words=in_words, max_steps=max_steps,
+                     out_cap=out_cap, barrier=not interpret)
+
+    call = pl.pallas_call(
+        kernel,
+        out_shape=(jax.ShapeDtypeStruct(((npad + 1) * ROW,), jnp.int32),
+                   jax.ShapeDtypeStruct((max_steps, npad), jnp.int32),
+                   jax.ShapeDtypeStruct((NSTATS, npad), jnp.int32)),
+        grid=(programs,),
+        input_output_aliases={2: 0, 3: 1},
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=1),
+        backend="triton",
+        interpret=interpret,
+        name="inflate_pass1",
+    )
+
+    def run(inbits, words):
+        tab = jnp.zeros(((npad + 1) * ROW,), jnp.int32)
+        tab = tab.at[npad * ROW:].set(jnp.asarray(_STATIC_ROW))
+        tok = jnp.zeros((max_steps, npad), jnp.int32)
+        _, tok, stats = call(inbits, words.reshape(-1), tab, tok)
+        return tok, stats
 
     return jax.jit(run)
 
 
-def _consts(s):
-    def bcast(a, n):
-        return jnp.asarray(np.broadcast_to(
-            a.reshape(n, 1, 1), (n, 1, 128)).copy())
-
-    return (bcast(CLCL_ORDER, 19),
-            bcast(_S_LL_LIM, 16), bcast(_S_LL_FB, 16),
-            bcast(_S_LL_PERM, 144),
-            bcast(_S_OF_LIM, 16), bcast(_S_OF_FB, 16),
-            bcast(_S_OF_PERM, 16))
-
-
-def pack_streams(streams: list[bytes], s: int = 1, in_cap: int = IN_CAP):
-    """Build the kernel's input arrays: per-lane bit lengths and the
-    overlapped-chunk word layout (chunk j = words [j*STRIDE,
-    j*STRIDE+CHUNK)). Returns (inbits, words, ok_flags, groups)."""
-    n = len(streams)
-    lanes = s * 128
-    groups = max(1, -(-n // lanes))
-    nchunk = in_cap // (4 * CHUNK_STRIDE) + 6
-    words = np.zeros((groups, lanes, nchunk, CHUNK_WORDS), np.int32)
-    inbits = np.zeros((groups, s, 128), np.int32)
-    ok = [True] * n
-    for i, data in enumerate(streams):
-        if len(data) == 0 or len(data) > in_cap:
-            ok[i] = False
-            continue
-        g, lane = i // lanes, i % lanes
-        inbits[g, lane // 128, lane % 128] = len(data) * 8
-        arr = np.frombuffer(data, np.uint8)
-        pad = (-len(arr)) % 4
-        if pad:
-            arr = np.concatenate([arr, np.zeros(pad, np.uint8)])
-        w = arr.view("<i4")
-        flat = np.zeros(nchunk * CHUNK_STRIDE + CHUNK_WORDS, np.int32)
-        flat[:len(w)] = w
-        strided = np.lib.stride_tricks.as_strided(
-            flat, (nchunk, CHUNK_WORDS), (4 * CHUNK_STRIDE, 4))
-        words[g, lane] = strided
-    return inbits, words, ok, groups
-
-
 def in_cap_bucket(streams) -> int:
-    """Input-capacity bucket (compressed bytes per stream); larger
-    buckets compile their own kernel variant — the cap lift replacing
-    round 3's silent host fallback above 64 KiB."""
+    """Input-capacity bucket (compressed bytes per stream); each bucket
+    compiles its own kernel variant."""
     need = max([len(x) for x in streams] or [1])
     for b in _IN_BUCKETS:
         if need <= b:
@@ -900,58 +562,56 @@ def in_cap_bucket(streams) -> int:
     return _IN_BUCKETS[-1]
 
 
-# per-group HBM budget guard: the token ring costs
-# max_steps * lanes * 4 bytes per group; decline the device path (host
-# fallback) rather than OOM the chip
-_RING_BYTES_MAX = 2 << 30
+# device memory guard: the token buffer costs max_steps * npad * 4
+# bytes; decline the device path (host decode) rather than run out.
+# A tenth of an H100's 80 GB leaves room for the device resolver.
+_TOK_BYTES_MAX = 8 << 30
 
 
-def _ring_ok(groups: int, s: int, max_steps: int) -> bool:
-    return max_steps * s * 128 * 4 <= _RING_BYTES_MAX
-
-
-def decode_tokens_device(streams: list[bytes], s: int = 1,
-                         max_steps: int = 72 * 1024,
-                         in_cap: int | None = None,
-                         out_cap: int = OUT_CAP):
-    """Pass 1 on device: list of raw-DEFLATE streams -> per-stream
-    (token_column int32 array | None, expected_outlen).
-
-    Streams over the input cap or that the kernel flags yield None.
-    """
-    n = len(streams)
-    if n == 0:
-        return []
+def _pass1(streams, max_steps, in_cap, out_cap, interpret):
+    """-> (tok device array, stats host array, ok flags) or None when
+    the token buffer would exceed _TOK_BYTES_MAX."""
     if in_cap is None:
         in_cap = in_cap_bucket(streams)
-    lanes = s * 128
-    if not _ring_ok(max(1, -(-n // lanes)), s, max_steps):
-        return [(None, 0)] * n
-    inbits, words, ok, groups = pack_streams(streams, s, in_cap)
+    programs, lanes = layout(len(streams))
+    npad = programs * lanes
+    if max_steps * npad * 4 > _TOK_BYTES_MAX:
+        return None
+    inbits, words, ok = pack_streams(streams, npad, in_cap)
+    run = _jit_pass1(programs, lanes, max_steps, in_cap, out_cap,
+                     interpret)
+    tok, stats = run(jnp.asarray(inbits), jnp.asarray(words))
+    return tok, np.asarray(stats), ok
 
-    order, sll_lim, sll_fb, sll_perm, sof_lim, sof_fb, sof_perm = \
-        _consts(s)
-    run = _jit_pass1(groups, s, max_steps, in_cap, out_cap)
-    toks_dev, stats_dev = run(jnp.asarray(inbits), order, sll_lim,
-                              sll_fb, sll_perm, sof_lim, sof_fb,
-                              sof_perm, jnp.asarray(words))
-    stats = np.asarray(stats_dev)        # (G, 8, s, 128)
-    # fetch only the flushed token rows (laststep bound, stats row 4)
-    laststep = int(stats[:, 4].max()) if n else 0
-    nrows = min(-(-max(laststep, 1) // TOK_CHUNK), max_steps // TOK_CHUNK)
-    toks = np.asarray(toks_dev[:, :nrows])   # (G, nrows, TOK_CHUNK, s, 128)
-    toks = toks.reshape(groups, nrows * TOK_CHUNK, lanes)
 
+def token_columns(tok, stats, ok, n: int, max_steps: int):
+    """Fetch the written token rows and split them per stream ->
+    list of (token column | None, expected output length)."""
+    laststep = int(stats[S_LASTSTEP].max())
+    nrows = min(max_steps, -(-max(laststep, 1) // 1024) * 1024)
+    toks = np.asarray(tok[:nrows])
     out = []
     for i in range(n):
-        g, lane = i // lanes, i % lanes
-        si, li = lane // 128, lane % 128
-        if not ok[i] or stats[g, 0, si, li] != DONE:
+        if not ok[i] or stats[S_MODE, i] != DONE:
             out.append((None, 0))
             continue
-        col = np.ascontiguousarray(toks[g, :, lane])
-        out.append((col, int(stats[g, 1, si, li])))
+        out.append((np.ascontiguousarray(toks[:, i]),
+                    int(stats[S_OUTPOS, i])))
     return out
+
+
+def decode_tokens_device(streams: list[bytes], max_steps: int = 72 * 1024,
+                         in_cap: int | None = None,
+                         out_cap: int = OUT_CAP, interpret: bool = False):
+    """Pass 1 on the device: raw-DEFLATE streams -> per stream
+    (token column int32 array | None, expected output length). Streams
+    over the input cap or that the kernel flags yield None."""
+    if not streams:
+        return []
+    r = _pass1(streams, max_steps, in_cap, out_cap, interpret)
+    if r is None:
+        return [(None, 0)] * len(streams)
+    return token_columns(*r, len(streams), max_steps)
 
 
 _STEP_BUCKETS = (1024, 2048, 4096, 16384, 72 * 1024, 288 * 1024,
@@ -960,12 +620,12 @@ _IN_BUCKETS = (65536, 262144, 1048576)
 
 
 def steps_for_caps(caps) -> int:
-    """Step budget bucket for a batch (bucketed to bound jit variants —
-    each distinct bucket costs a full pass-1 compile, ~5 min on the CPU
-    test backend). Tokens per stream are bounded by output bytes plus
-    header/stall slack (a block header batches to tens of stall steps;
-    1024 covers hundreds of blocks); streams that exceed the budget
-    report not-DONE and fall back to the host decoder."""
+    """Step budget bucket for a batch (bucketed to bound compiled
+    variants). A stream needs one step per token, at most one per output
+    byte, plus its block headers: a dynamic header takes up to 19 + 316
+    steps, which the 1024 slack covers for a few blocks per stream.
+    Streams that exceed
+    the budget end not-DONE and are decoded on the host."""
     need = max([c for c in caps] or [0]) + 1024
     for b in _STEP_BUCKETS:
         if need <= b:
@@ -975,40 +635,34 @@ def steps_for_caps(caps) -> int:
 
 def _resolve_one(job):
     from ...native.host import native_resolve_tokens
-    from ..tokens import resolve_tokens_np
 
     col, outlen = job
     if col is None:
         return None
-    try:
-        got = native_resolve_tokens(col, outlen)
-    except LookupError:
-        got = resolve_tokens_np(col, outlen)
+    got = native_resolve_tokens(col, outlen)
     if got is not None and len(got) != outlen:
         got = None
     return got
 
 
-def inflate_device_tokens(streams: list[bytes], s: int = 1,
-                          max_steps: int = 72 * 1024,
+def inflate_device_tokens(streams: list[bytes], max_steps: int = 72 * 1024,
                           in_cap: int | None = None,
-                          out_cap: int = OUT_CAP):
-    """Full two-pass device decode: pass 1 on device, pass 2 as the
-    parallel LZ copy-resolution pass — per-stream C resolution fanned
-    out on the host pool (the C resolver releases the GIL), numpy
-    fallback. Returns list[bytes | None]."""
+                          out_cap: int = OUT_CAP, interpret: bool = False):
+    """Two-pass decode: pass 1 on the device, pass 2 with the C resolver
+    fanned out on the host pool (it releases the GIL). Returns
+    list[bytes | None]."""
     from ...parallel.hostpool import pmap
 
     return pmap(_resolve_one,
-                decode_tokens_device(streams, s, max_steps, in_cap,
-                                     out_cap))
+                decode_tokens_device(streams, max_steps, in_cap, out_cap,
+                                     interpret))
 
 
 _CAP_BUCKETS = (2048, 16384, 65536, 262144, 1048576)
 
 
 def cap_bucket(caps) -> int:
-    """Output-capacity bucket for the device resolver (bounds jit
+    """Output-capacity bucket for the device resolver (bounds compiled
     variants the same way steps_for_caps bounds pass-1 variants)."""
     need = max([c for c in caps] or [1])
     for b in _CAP_BUCKETS:
@@ -1017,67 +671,59 @@ def cap_bucket(caps) -> int:
     return _CAP_BUCKETS[-1]
 
 
-@functools.lru_cache(maxsize=8)
-def _jit_resolve_tok(groups: int, s: int, out_cap: int):
-    """jit: pass-1 token output (G, nflush, TOK_CHUNK, s, 128) ->
-    (bytes (B, out_cap) uint8, outlen (B,), ok (B,)) with B = G*s*128,
-    row order matching decode_tokens_device's stream indexing."""
+def resolve_columns(n: int, npad: int) -> int:
+    """Token columns the device resolver reads for n real streams of a
+    layout of npad: n rounded up to an eighth of npad. This skips most
+    of the padding and bounds the resolver's compiled variants to eight
+    per layout."""
+    step = max(1, npad // 8)
+    return min(npad, -(-max(n, 1) // step) * step)
+
+
+@functools.lru_cache(maxsize=16)
+def _jit_resolve_tok(out_cap: int, ncols: int):
+    """jit: pass-1 tokens (max_steps, npad) -> (bytes (ncols, out_cap)
+    uint8, outlen (ncols,), ok (ncols,)) for the first ncols streams."""
     from ..resolve import resolve_batch_jax
 
-    lanes = s * 128
-
-    def f(toks):
-        t = jnp.transpose(toks, (0, 3, 4, 1, 2))   # (G, s, 128, nf, TC)
-        t = t.reshape(groups * lanes, -1)
-        return resolve_batch_jax(t, out_cap)
-
-    return jax.jit(f)
+    return jax.jit(lambda tok: resolve_batch_jax(tok[:, :ncols].T, out_cap))
 
 
-def inflate_device_fused(streams: list[bytes], s: int = 1,
-                         max_steps: int = 72 * 1024,
-                         out_cap: int = 65536,
-                         in_cap: int | None = None):
-    """Two-pass decode with BOTH passes on device: the lockstep pass-1
-    token kernel feeds the XLA LZ copy-resolution pass (ops/resolve.py)
-    without the tokens ever leaving HBM — only decoded bytes (1/4 the
-    token volume) cross the host link. Returns list[bytes | None].
+def resolve_tokens_device(tok, n: int, out_cap: int):
+    """Device copy resolution (ops/resolve.py) of the first n streams'
+    pass-1 tokens; the outputs cover resolve_columns(n, npad) streams."""
+    return _jit_resolve_tok(out_cap, resolve_columns(n, tok.shape[1]))(tok)
 
-    The TPU analog of keeping the reference's copy kernels
-    (reference src/decompress/x86.rs:2030-2190) on the same core as its
-    symbol loop instead of round-tripping through another processor.
-    """
+
+def fused_results(out, outlen, okr, stats, ok, n: int, out_cap: int):
+    """Per-stream bytes | None from the device resolver's outputs."""
+    out_h = np.asarray(out)
+    len_h = np.asarray(outlen)
+    okr_h = np.asarray(okr)
+    res = []
+    for i in range(n):
+        explen = int(stats[S_OUTPOS, i])
+        if (not ok[i] or stats[S_MODE, i] != DONE or not okr_h[i]
+                or int(len_h[i]) != explen or explen > out_cap):
+            res.append(None)
+            continue
+        res.append(out_h[i, :explen].tobytes())
+    return res
+
+
+def inflate_device_fused(streams: list[bytes], max_steps: int = 72 * 1024,
+                         out_cap: int = OUT_CAP, in_cap: int | None = None,
+                         interpret: bool = False):
+    """Two-pass decode with both passes on the device: the pass-1 tokens
+    feed the XLA copy-resolution pass (ops/resolve.py) without leaving
+    device memory; only decoded bytes are fetched. Returns
+    list[bytes | None]."""
     n = len(streams)
     if n == 0:
         return []
-    if in_cap is None:
-        in_cap = in_cap_bucket(streams)
-    lanes = s * 128
-    if not _ring_ok(max(1, -(-n // lanes)), s, max_steps):
+    r = _pass1(streams, max_steps, in_cap, out_cap, interpret)
+    if r is None:
         return [None] * n
-    inbits, words, ok, groups = pack_streams(streams, s, in_cap)
-    order, sll_lim, sll_fb, sll_perm, sof_lim, sof_fb, sof_perm = \
-        _consts(s)
-    run = _jit_pass1(groups, s, max_steps, in_cap, out_cap)
-    toks_dev, stats_dev = run(jnp.asarray(inbits), order, sll_lim,
-                              sll_fb, sll_perm, sof_lim, sof_fb,
-                              sof_perm, jnp.asarray(words))
-    out_dev, outlen_dev, okr_dev = _jit_resolve_tok(
-        groups, s, out_cap)(toks_dev)
-    stats = np.asarray(stats_dev)        # (G, 8, s, 128)
-    out_h = np.asarray(out_dev)
-    len_h = np.asarray(outlen_dev)
-    okr_h = np.asarray(okr_dev)
-    res = []
-    for i in range(n):
-        g, lane = i // lanes, i % lanes
-        si, li = lane // 128, lane % 128
-        row = g * lanes + lane
-        explen = int(stats[g, 1, si, li])
-        if (not ok[i] or stats[g, 0, si, li] != DONE
-                or not okr_h[row] or int(len_h[row]) != explen
-                or explen > out_cap):
-            res.append(None)
-            continue
-        res.append(out_h[row, :explen].tobytes())
-    return res
+    tok, stats, ok = r
+    out, outlen, okr = resolve_tokens_device(tok, n, out_cap)
+    return fused_results(out, outlen, okr, stats, ok, n, out_cap)

@@ -3,18 +3,17 @@
 The decode-side analog of the reference's copy-kernel machinery
 (reference src/decompress/x86.rs:2030-2190 — ~50 specialized per-offset
 copy kernels — and src/decompress/mod.rs:1258-1317 pattern broadcast),
-re-designed for TPU: instead of serially materializing each back
+re-designed for a device: instead of serially materializing each back
 reference, every output byte position computes its *source literal* by
 pointer doubling, so the whole pass is data-parallel over positions and
-streams and runs as a handful of vectorized scatter/scan/gather rounds.
+streams and runs as a handful of vectorized scan/gather rounds.
 
 Given the pass-1 token columns (ops/pallas/inflate_tokens.py), for one
 stream of N output bytes:
 
 1. token output extents -> exclusive scan gives each token's start;
-2. a max-scatter of emitting-token indices at their starts plus an
-   associative max-scan forward-fills `cov[p]` = covering token of
-   output position p;
+2. a batched binary search over the (sorted) token starts finds
+   `cov[p]` = covering token of output position p;
 3. parent pointers: `par[p] = p - dist(cov[p])` inside a match (this is
    correct for overlapping copies too — the parent is strictly smaller,
    so chains terminate at literals), `par[p] = p` at literals (roots);
@@ -24,9 +23,8 @@ stream of N output bytes:
    literal bytes yields the output.
 
 Every step is a full-width vector op: the only "irregular" primitives
-are one scatter-max and take_along_axis gathers, both of which XLA:TPU
-implements natively — there is no per-byte serial loop anywhere, on any
-input. Memory traffic is ~(rounds+2) x 4 bytes per output byte; rounds
+are take_along_axis gathers, which XLA implements natively — there is
+no per-byte serial loop anywhere, on any input. Memory traffic is ~(rounds+2) x 4 bytes per output byte; rounds
 adapt to the actual chain depth via the while_loop convergence test.
 
 The same function drives the sharded decoder: resolution is per-stream
@@ -72,11 +70,9 @@ def resolve_batch_jax(tokens, out_cap: int):
     # is <= p (starts are a cumsum, hence sorted per row, and every
     # token after the covering one starts at or past its end). Computed
     # as a batched binary search unrolled to ceil(log2(T+1)) gather
-    # rounds: XLA:TPU compiles a (B, N) take_along_axis in ~1 s and
-    # executes it in ~1 ms, whereas ANY scatter at these shapes costs
-    # minutes of scatter-expander compile (measured 165-250 s at B=8
-    # with unique+sorted hints — the round-4 bench timeout), so this
-    # pass uses no scatter at all.
+    # rounds: a scatter at these shapes cost minutes of compile on the
+    # accelerator this was first written for, so this pass uses no
+    # scatter at all.
     pos = jnp.broadcast_to(jnp.arange(N, dtype=jnp.int32), (B, N))
     lo = jnp.zeros((B, N), jnp.int32)
     hi = jnp.full((B, N), T, jnp.int32)

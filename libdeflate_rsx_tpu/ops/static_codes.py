@@ -1,8 +1,8 @@
 """Closed-form static-Huffman DEFLATE code computation (pure elementwise).
 
-On this hardware, table gathers cost ~9 ms per million lookups while
-elementwise ops run at VPU speed, so the static code tables of the
-reference (reference src/compress/mod.rs StaticTables, built once and then
+Table gathers were the slow operation on the accelerator this was
+first written for, while elementwise ops were cheap, so the static code
+tables of the reference (reference src/compress/mod.rs StaticTables, built once and then
 gathered per symbol) are replaced by closed-form bit arithmetic evaluated
 per position: RFC 1951 §3.2.6 static codes, the length→symbol and
 offset→symbol maps, and LSB-first bit reversal — all shifts/masks/selects,

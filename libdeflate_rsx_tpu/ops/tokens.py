@@ -1,14 +1,14 @@
 """LZ token stream format shared by the two-pass device decoder.
 
-The round-3 device decode architecture splits DEFLATE decode into:
+The device decode architecture splits DEFLATE decode into:
 
 - pass 1 (`ops/pallas/inflate_tokens.py`): lockstep-SIMD entropy decode
-  of many streams at once across VPU lanes -> one int32 token per lane
+  of many streams at once, one stream per lane -> one int32 token per lane
   per step;
 - pass 2: LZ copy resolution, either the native C resolver
   (`native/codec.c resolve_tokens_c`) or the device lockstep resolver.
 
-This is the TPU re-design of the reference's decode split between the
+This is the device re-design of the reference's decode split between the
 table-driven symbol loop (reference src/decompress/mod.rs:509-1072) and
 the specialized copy kernels (reference src/decompress/x86.rs:2030-2190):
 entropy decode is the serial-per-stream part, made throughput-parallel

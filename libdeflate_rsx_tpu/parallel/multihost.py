@@ -1,25 +1,25 @@
-"""Multi-host (DCN) batch dispatch.
+"""Multi-host batch dispatch.
 
 The reference is single-process (rayon); SURVEY.md §2 specifies the
-TPU-native scaling path: shard batches of independent streams across
-hosts over DCN with `jax.distributed`, keep block encoding local to each
-host's chips (ICI), and reduce only tiny metadata (sizes, checksum
+multi-host scaling path: shard batches of independent streams across
+hosts with `jax.distributed`, keep block encoding local to each host's
+devices, and reduce only tiny metadata (sizes, checksum
 registers) globally. That shape is exactly what this module implements:
 
- - `initialize()` — standard pod bring-up (jax.distributed).
+ - `initialize()` — standard multi-process bring-up (jax.distributed).
  - `process_local_batch()` — deterministic round-robin split of a global
    batch; every host computes the same split, no coordination traffic.
  - `compress_local_shard()` — this host's shard through the sharded
    device encoder on LOCAL devices only (compressed streams are
    independent; nothing host-crossing in the hot path).
- - `global_sizes()` — the one true DCN collective: an all-gather (psum
+ - `global_sizes()` — the one cross-host collective: an all-gather (psum
    formulation) of per-host compressed byte totals, giving every host
    the global concatenation offsets without moving payload bytes.
 
 Single-host meshes work without any of this; call `initialize()` once per
 process on a multi-host slice before using the global helpers. Tested by
 tests/test_multihost.py with two real jax.distributed processes on the
-CPU backend (the test analog of a 2-host DCN slice).
+CPU backend (the test analog of two hosts).
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ def initialize(coordinator_address: str | None = None,
                num_processes: int | None = None,
                process_id: int | None = None) -> None:
     """jax.distributed.initialize with env-var fallback (the standard
-    TPU pod bring-up; a no-op when already initialized)."""
+    multi-process bring-up; a no-op when already initialized)."""
     try:
         jax.distributed.initialize(
             coordinator_address=coordinator_address,
@@ -48,9 +48,9 @@ def initialize(coordinator_address: str | None = None,
 
 def global_stream_mesh() -> Mesh:
     """1-D "streams" mesh over every device of every host. With a
-    NamedSharding over this mesh, per-host blocks stay on local chips
-    (data parallel over DCN) and collectives ride DCN only for the
-    per-shard metadata."""
+    NamedSharding over this mesh, per-host blocks stay on local devices
+    (data parallel across hosts) and collectives cross hosts only for
+    the per-shard metadata."""
     return Mesh(np.asarray(jax.devices()), (AXIS,))
 
 
@@ -66,7 +66,7 @@ def process_local_batch(inputs: list) -> list:
 def compress_local_shard(inputs: list, block_size: int = 65536,
                          level_tier: str = "static") -> list[bytes]:
     """Compress this host's round-robin shard of a global batch on this
-    host's local devices. Payload bytes never cross DCN: each stream is
+    host's local devices. Payload bytes never cross hosts: each stream is
     independent, so inter-host traffic is only the metadata exchange in
     `global_sizes` (callers move the compressed bytes with their own
     storage/RPC layer, as in any production batch system)."""
@@ -79,7 +79,7 @@ def compress_local_shard(inputs: list, block_size: int = 65536,
 
 
 def global_sizes(local_total: int) -> np.ndarray:
-    """All-gather per-host compressed byte totals over DCN: the exclusive
+    """All-gather per-host compressed byte totals across hosts: the exclusive
     scan of the result is every host's write offset for ordered global
     concatenation (SURVEY.md §2: 'all-gather per-block compressed sizes +
     an exclusive-scan of offsets'). Runs a real collective on the global
@@ -130,7 +130,7 @@ def compress_global(data: bytes, format: str = "gzip",
     Each host compresses its contiguous block-aligned slice of `data`
     on its local chips (non-final SYNC-joined blocks except the global
     tail), then the per-host compressed payloads, sizes, and checksum
-    registers are all-gathered over DCN; every host assembles the
+    registers are all-gathered across hosts; every host assembles the
     identical gzip/zlib/deflate stream and combines the checksum
     registers with the associative crc32/adler32 algebra
     (ops/checksum_math.py) instead of re-hashing payload bytes.
@@ -163,7 +163,7 @@ def compress_global(data: bytes, format: str = "gzip",
     crc = crc32_h(my) if format == "gzip" else 0
     adl = adler32_h(my) if format == "zlib" else 1
 
-    # ---- DCN all-gathers: payload bytes + (size, crc, adler, len)
+    # ---- cross-host all-gathers: payload bytes + (size, crc, adler, len)
     meta = np.array([len(payload), crc, adl, len(my)], np.int64)
     metas = np.asarray(multihost_utils.process_allgather(meta))
     if metas.ndim == 1:

@@ -1,23 +1,23 @@
-"""Multi-chip data parallelism: shard_map batch encode over a device mesh.
+"""Multi-device data parallelism: shard_map batch encode and decode.
 
 The reference scales with rayon thread pools (reference src/batch.rs:34-57,
-src/compress/mod.rs:699-772); the TPU equivalent shards batches of
-independent blocks across chips over a 1-D mesh axis "streams"
-(SURVEY.md §2 "Distributed communication backend"):
+src/compress/mod.rs:699-772); here batches of independent blocks are
+sharded across devices over a flat 1-D mesh axis "streams" (SURVEY.md §2
+"Distributed communication backend"), which suits cards joined all to
+all by NVLink:
 
  - each device encodes its rows with the gather-free static-Huffman block
    kernel (ops/encode_v2.py) entirely locally,
  - ordered concatenation offsets come from a local cumsum plus an
-   `all_gather` of per-shard byte totals over ICI (the exclusive scan of
+   `all_gather` of per-shard byte totals (the exclusive scan of
    per-block compressed sizes),
  - per-block CRC-32 / Adler-32 registers are computed on-device with the
    GF(2)-matmul kernels (ops/checksums.py) and combined associatively on
    the host (ops/checksum_math.py) — a psum-style tree, never a serial
    re-scan of the payload.
 
-Works identically on a real TPU slice and on the virtual
-`xla_force_host_platform_device_count` CPU mesh used by tests and the
-driver's `dryrun_multichip`.
+Works the same on a GPU host and on the virtual
+`xla_force_host_platform_device_count` CPU mesh used by the tests.
 """
 
 from __future__ import annotations
@@ -58,7 +58,7 @@ def _step(blocks, valids, finals, *, block_size: int, checksums: bool):
         blocks, valids, finals)
     local_sizes = nbytes.astype(jnp.int32)
     local_scan = jnp.cumsum(local_sizes) - local_sizes
-    totals = jax.lax.all_gather(jnp.sum(local_sizes), AXIS)  # over ICI
+    totals = jax.lax.all_gather(jnp.sum(local_sizes), AXIS)
     me = jax.lax.axis_index(AXIS)
     prefix = jnp.sum(jnp.where(jnp.arange(totals.shape[0]) < me, totals, 0))
     offsets = local_scan + prefix
@@ -87,7 +87,7 @@ def _jit_sharded_analyze(mesh: Mesh, block_size: int):
 
 @functools.lru_cache(maxsize=8)
 def _jit_sharded_emit(mesh: Mesh, block_size: int):
-    """Dynamic tier, phase B: table-coded emission + MXU packing."""
+    """Dynamic tier, phase B: table-coded emission + matmul packing."""
     fn = jax.vmap(functools.partial(emit_pack, block_size=block_size))
     mapped = jax.shard_map(
         lambda *a: fn(*a),
@@ -133,7 +133,7 @@ def shard_blocks(data: bytes, block_size: int, n_devices: int):
 class ShardedCompressor:
     """Data-parallel whole-buffer / batch DEFLATE encoder over a mesh.
 
-    The flagship multi-chip path: level-1-tier static-Huffman blocks,
+    The flagship multi-device path: level-1-tier static-Huffman blocks,
     sharded over the "streams" mesh axis, with device checksums and
     associative host combination for zlib/gzip framing.
     """
@@ -185,7 +185,7 @@ class ShardedCompressor:
 
     def compress(self, data: bytes, format: str = "deflate",
                  final: bool = True) -> bytes:
-        """Compress one buffer, blocks sharded across every chip.
+        """Compress one buffer, blocks sharded across every device.
 
         final=False emits the last real block as a non-final SYNC-joined
         block (byte-aligned), so streams from successive shards
@@ -283,58 +283,50 @@ class ShardedCompressor:
 
 
 @functools.lru_cache(maxsize=16)
-def _sharded_pass1(mesh, per_dev: int, max_steps: int, n_consts: int):
-    """Composed jit(shard_map(pass-1)) cached by configuration: a fresh
-    closure per call would force a full retrace AND recompile of the
-    composed graph every decompress_batch (minutes on the CPU test
-    backend, ~30 s on a chip)."""
+def _sharded_pass1(mesh, programs: int, lanes: int, max_steps: int,
+                   in_cap: int, out_cap: int, interpret: bool):
+    """jit(shard_map(pass 1)) cached by configuration: each device runs
+    the pass-1 kernel over its own `programs` programs of streams."""
     from ..ops.pallas import inflate_tokens as it
 
-    run = it._jit_pass1(per_dev, 1, max_steps)
-
-    def shard_fn(ib, *rest):
-        return run(ib, *rest)
-
+    run = it._jit_pass1(programs, lanes, max_steps, in_cap, out_cap,
+                        interpret)
     return jax.jit(jax.shard_map(
-        shard_fn, mesh=mesh,
-        in_specs=(P(AXIS),) + (P(),) * n_consts + (P(AXIS),),
-        out_specs=(P(AXIS), P(AXIS)), check_vma=False))
+        run, mesh=mesh, in_specs=(P(AXIS), P(AXIS)),
+        out_specs=(P(None, AXIS), P(None, AXIS)), check_vma=False))
 
 
 @functools.lru_cache(maxsize=16)
-def _sharded_resolve(mesh, per_dev: int, out_cap: int):
-    """Composed jit(shard_map(resolver)) cached by configuration."""
+def _sharded_resolve(mesh, out_cap: int):
+    """jit(shard_map(resolver)) cached by configuration; each device
+    resolves the token columns it decoded."""
     from ..ops.resolve import resolve_batch_jax
 
-    lanes = 128
-
-    def local(toks):                 # (per_dev, nf, TC, 1, 128)
-        t = jnp.transpose(toks, (0, 3, 4, 1, 2))
-        t = t.reshape(per_dev * lanes, -1)
-        return resolve_batch_jax(t, out_cap)
-
     return jax.jit(jax.shard_map(
-        local, mesh=mesh, in_specs=P(AXIS),
-        out_specs=(P(AXIS), P(AXIS), P(AXIS)), check_vma=False))
+        lambda tok: resolve_batch_jax(tok.T, out_cap), mesh=mesh,
+        in_specs=P(None, AXIS), out_specs=(P(AXIS), P(AXIS), P(AXIS)),
+        check_vma=False))
 
 
 class ShardedDecompressor:
     """Data-parallel batch DEFLATE decode over a mesh.
 
-    Stream groups (128 lanes each) of the lockstep two-pass decoder
-    (ops/pallas/inflate_tokens.py) are sharded across the "streams"
-    mesh axis with shard_map: each chip entropy-decodes its groups in
-    lockstep, and LZ resolution runs either through the native C
-    resolver on the host pool (resolve="host") or as the sharded XLA
-    copy-resolution pass on the same chips (resolve="device",
-    ops/resolve.py) so only decoded bytes leave the mesh. The
-    multi-chip analog of the reference's per-thread batch
-    decompression (reference src/batch.rs:74-101).
+    The streams of the two-pass decoder (ops/pallas/inflate_tokens.py)
+    are sharded across the "streams" mesh axis with shard_map: each
+    device entropy-decodes its streams in lockstep, and LZ resolution
+    runs either through the native C resolver on the host pool
+    (resolve="host") or as the sharded XLA copy-resolution pass on the
+    same devices (resolve="device", ops/resolve.py) so only decoded
+    bytes leave the mesh. The multi-device analog of the reference's
+    per-thread batch decompression (reference src/batch.rs:74-101).
+    interpret=True runs the kernel in the Pallas interpreter (CPU
+    tests).
     """
 
     def __init__(self, mesh: Mesh | None = None,
                  max_steps: int = 72 * 1024,
-                 resolve: str = "host", out_cap: int = 65536) -> None:
+                 resolve: str = "host", out_cap: int = 65536,
+                 interpret: bool = False) -> None:
         self.mesh = mesh if mesh is not None else stream_mesh()
         self.n_devices = self.mesh.devices.size
         self.max_steps = max_steps
@@ -342,6 +334,7 @@ class ShardedDecompressor:
             raise ValueError(f"resolve must be host|device: {resolve!r}")
         self.resolve = resolve
         self.out_cap = out_cap
+        self.interpret = interpret
 
     def decompress_batch(self, streams: list[bytes]) -> list:
         from ..ops.pallas import inflate_tokens as it
@@ -349,74 +342,22 @@ class ShardedDecompressor:
         n = len(streams)
         if n == 0:
             return []
-        lanes = 128
-        inbits, words, ok, groups = it.pack_streams(streams, 1)
-        # pad groups to a multiple of the mesh size
-        gpad = _round_up(groups, self.n_devices)
-        if gpad > groups:
-            pad = gpad - groups
-            inbits = np.concatenate(
-                [inbits, np.zeros((pad,) + inbits.shape[1:], np.int32)])
-            words = np.concatenate(
-                [words, np.zeros((pad,) + words.shape[1:], np.int32)])
-        per_dev = gpad // self.n_devices
-        consts = it._consts(1)
+        programs, lanes = it.layout(n, self.n_devices)
+        in_cap = it.in_cap_bucket(streams)
+        inbits, words, ok = it.pack_streams(streams, programs * lanes,
+                                            in_cap)
         sharding = NamedSharding(self.mesh, P(AXIS))
-        repl = NamedSharding(self.mesh, P())
-        fn = _sharded_pass1(self.mesh, per_dev, self.max_steps,
-                            len(consts))
-        toks_dev, stats_dev = fn(
-            jax.device_put(jnp.asarray(inbits), sharding),
-            *[jax.device_put(c, repl) for c in consts],
-            jax.device_put(jnp.asarray(words), sharding))
-        stats = np.asarray(stats_dev)
-
+        fn = _sharded_pass1(self.mesh, programs // self.n_devices, lanes,
+                            self.max_steps, in_cap, self.out_cap,
+                            self.interpret)
+        tok, stats = fn(jax.device_put(inbits, sharding),
+                        jax.device_put(words, sharding))
+        stats = np.asarray(stats)
         if self.resolve == "device":
-            return self._resolve_device(toks_dev, stats, ok, n,
-                                        per_dev)
-
-        laststep = int(stats[:, 4].max())
-        nrows = min(-(-max(laststep, 1) // it.TOK_CHUNK),
-                    self.max_steps // it.TOK_CHUNK)
-        toks = np.asarray(toks_dev[:, :nrows])
-        toks = toks.reshape(gpad, nrows * it.TOK_CHUNK, lanes)
-
-        from ..ops.pallas.inflate_tokens import _resolve_one
+            out, outlen, okr = _sharded_resolve(self.mesh, self.out_cap)(tok)
+            return it.fused_results(out, outlen, okr, stats, ok, n,
+                                    self.out_cap)
         from .hostpool import pmap
-        jobs = []
-        for i in range(n):
-            g, lane = i // lanes, i % lanes
-            if not ok[i] or stats[g, 0, 0, lane] != it.DONE:
-                jobs.append((None, 0))
-                continue
-            jobs.append((np.ascontiguousarray(toks[g, :, lane]),
-                         int(stats[g, 1, 0, lane])))
         # pass 2: parallel LZ copy-resolution on the host pool
-        return pmap(_resolve_one, jobs)
-
-    def _resolve_device(self, toks_dev, stats, ok, n: int,
-                        per_dev: int) -> list:
-        """Pass 2 sharded over the mesh: resolution is per-stream local
-        (no collectives), so each chip resolves the token groups it
-        decoded; only the decoded bytes are fetched."""
-        from ..ops.pallas import inflate_tokens as it
-
-        lanes = 128
-        out_cap = self.out_cap
-        fn = _sharded_resolve(self.mesh, per_dev, out_cap)
-        out_dev, outlen_dev, okr_dev = fn(toks_dev)
-        out_h = np.asarray(out_dev)
-        len_h = np.asarray(outlen_dev)
-        okr_h = np.asarray(okr_dev)
-        res = []
-        for i in range(n):
-            g, lane = i // lanes, i % lanes
-            row = g * lanes + lane
-            explen = int(stats[g, 1, 0, lane])
-            if (not ok[i] or stats[g, 0, 0, lane] != it.DONE
-                    or not okr_h[row] or int(len_h[row]) != explen
-                    or explen > out_cap):
-                res.append(None)
-                continue
-            res.append(out_h[row, :explen].tobytes())
-        return res
+        return pmap(it._resolve_one,
+                    it.token_columns(tok, stats, ok, n, self.max_steps))

@@ -3,7 +3,7 @@
 DEFLATE packs bits LSB-first within bytes; Huffman codewords are emitted
 bit-reversed. These host classes are the portable analog of the reference's
 64-bit Bitstream writer (reference src/compress/bitstream.rs:3-223) and the
-decoder's bitbuf refill; the TPU path packs bits with a scan+scatter kernel
+decoder's bitbuf refill; the device path packs bits with a scan+scatter kernel
 instead (ops/encode_v2.py).
 """
 

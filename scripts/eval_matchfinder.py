@@ -228,7 +228,7 @@ def find_matches_ladder(data_padded, valid_len, s, *, nwords=3, k=2,
 def find_matches_direct(data_padded, valid_len, s, *, k=2,
                         tiers=(8, 16), tier_k=2, carry=2):
     """Direct multi-word-key tier ladder (no ranks, no cumsum — both
-    measured expensive on TPU): tier L sorts by the raw L-byte prefix
+    measured expensive where first evaluated): tier L sorts by the raw L-byte prefix
     (L/4 u32 keys); adjacent rows with equal keys share >= L bytes and,
     by stable position order, the j-th predecessor is the j-th nearest.
     Carried next-words give exact lengths to L + 4*carry. All tiers

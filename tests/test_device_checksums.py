@@ -1,7 +1,8 @@
 """Device (JAX) checksum kernels vs the zlib oracle.
 
 Runs on the CPU backend in tests (conftest forces JAX_PLATFORMS=cpu); the
-same code hits the MXU on TPU. Exactness does not depend on the backend:
+same code runs as matrix products on a GPU, at Precision.HIGHEST.
+Exactness does not depend on the backend:
 the CRC matmul accumulates 0/1 values and the Adler matmuls stay below the
 f32 integer-exactness bound.
 """

@@ -110,14 +110,14 @@ def test_auto_offload_ratio_contract():
 
     datas = [make_corpus("text", 40000, seed=i) for i in range(3)]
     bc = BatchCompressor(level=6)
-    # force the link probe to "fast" so auto mode actually considers the
+    # pretend JAX runs on a GPU so auto mode actually considers the
     # device path; the ratio gate is what's under test
-    old = batch_mod._link_ok
-    batch_mod._link_ok = True
+    old = batch_mod._gpu_backend
+    batch_mod._gpu_backend = lambda: True
     try:
         outs = bc.compress_batch(datas)
     finally:
-        batch_mod._link_ok = old
+        batch_mod._gpu_backend = old
     for d, o in zip(datas, outs):
         assert raw_inflate(o) == d
         host = compress_raw(d, 6, Flush.FINISH)

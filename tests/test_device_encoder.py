@@ -1,4 +1,4 @@
-"""TPU block-encoder tests (CPU backend): wire-format validity via the
+"""Device block-encoder tests (CPU backend): wire-format validity via the
 zlib oracle, block joins, batch API fault isolation, per-block checksums."""
 
 import zlib

@@ -1,9 +1,9 @@
-"""Production device decoder (ops/pallas/inflate_v2.py).
+"""Device batch decoder behaviour (ops/pallas/inflate_tokens.py).
 
-Runs in interpret mode on the CPU conftest mesh; the same kernel was
-verified byte-exact on real TPU hardware (see STATUS.md). Differential
-oracle: CPython zlib produces the streams (the reference's libdeflater
-oracle pattern, SURVEY.md §4).
+Runs the pass-1 kernel in the Pallas interpreter on the CPU test
+backend, through the same compiled variant as test_inflate_tokens.py.
+Differential oracle: CPython zlib produces the streams (the reference's
+libdeflater oracle pattern, SURVEY.md §4).
 """
 
 import random
@@ -12,16 +12,11 @@ import zlib
 import pytest
 
 from tests.conftest import make_corpus
-
-
-def _inflate(streams):
-    from libdeflate_rsx_tpu.ops.pallas.inflate_v2 import inflate_device
-
-    return inflate_device(streams)
+from tests.test_inflate_tokens import _run as _inflate
 
 
 def test_dynamic_static_stored_blocks():
-    bash_like = make_corpus("pattern", 30000, seed=3)
+    bash_like = make_corpus("pattern", 12000, seed=3)
     cases = [
         zlib.compress(b"ab" * 2000, 9)[2:-4],            # tiny alphabet
         zlib.compress(make_corpus("text", 20000), 6)[2:-4],   # dynamic
@@ -71,47 +66,38 @@ def test_truncated_yields_none():
 def test_over_cap_yields_none():
     big = zlib.compress(make_corpus("random", 80000, seed=2), 6)[2:-4]
     assert len(big) > 65536
-    assert _inflate([big]) == [None]
+    assert _inflate([big], in_cap=65536) == [None]
 
 
 def test_batch_decompressor_device_path():
+    from libdeflate_rsx_tpu import batch
     from libdeflate_rsx_tpu.batch import BatchCompressor, BatchDecompressor
 
     items = [make_corpus("text", 12000, seed=5),
              make_corpus("pattern", 9000, seed=6),
              b"",
-             make_corpus("random", 90000, seed=7)]   # over-cap: fallback
+             make_corpus("random", 90000, seed=7)]   # over a 64 KiB cap
     for fmt in ("deflate", "zlib", "gzip"):
         comp = BatchCompressor(level=6, format=fmt,
                                use_device=False).compress_batch(items)
-        dec = BatchDecompressor(format=fmt, use_device=True)
+        dec = BatchDecompressor(format=fmt, use_device=True,
+                                interpret=True)
+        batch.reset_counters()
         out = dec.decompress_batch(comp, [max(len(x), 1) for x in items])
         assert out == items, fmt
+        # only the empty raw stream is a host item (no DEFLATE data)
+        assert batch.counters["device_items"] >= 3, fmt
 
 
 def test_batch_decompressor_device_fault_isolation():
+    from libdeflate_rsx_tpu import batch
     from libdeflate_rsx_tpu.batch import BatchDecompressor
 
     good = zlib.compress(b"x" * 5000, 6)[2:-4]
-    dec = BatchDecompressor(use_device=True)
+    dec = BatchDecompressor(use_device=True, interpret=True)
+    batch.reset_counters()
     out = dec.decompress_batch([good, b"\x07\x00", good], [5000, 100, 5000])
     assert out[0] == b"x" * 5000
     assert out[1] is None
     assert out[2] == b"x" * 5000
-
-
-def test_output_near_reserved_trailer_words_not_corrupted():
-    """Regression (round-2 advisor): outputs landing in the reserved
-    trailer words used to report success with silently zeroed tails.
-    Every size around the data-area cap must either decode byte-exact
-    or yield None — never corrupt."""
-    from libdeflate_rsx_tpu.ops.pallas.inflate_v2 import OUT_WORDS
-
-    cap = (OUT_WORDS - 2) * 4
-    r = random.Random(5)
-    sizes = [cap - 4, cap - 1, cap, cap + 1, cap + 4]
-    datas = [bytes(r.randrange(256) for _ in range(100)) * (s // 100)
-             + b"x" * (s % 100) for s in sizes]
-    comps = [zlib.compress(d, 6)[2:-4] for d in datas]
-    for d, got in zip(datas, _inflate(comps)):
-        assert got is None or got == d
+    assert batch.counters == {"device_items": 2, "host_fallback_items": 1}

@@ -1,7 +1,7 @@
-"""Multi-host (DCN) path: two REAL jax.distributed processes on the CPU
+"""Multi-host path: two REAL jax.distributed processes on the CPU
 backend — the test analog of a 2-host pod slice (the reference has no
 multi-host; SURVEY.md §2 'Distributed communication backend' specifies
-this design: encode local, all-gather only metadata over DCN)."""
+this design: encode local, all-gather only metadata across hosts)."""
 
 import json
 import os
@@ -33,7 +33,7 @@ local = mh.process_local_batch(batch)
 for d, o in zip(local, outs):
     assert zlib.decompress(o, -15) == d
 
-# the DCN collective: global per-host compressed totals
+# the cross-host collective: global per-host compressed totals
 local_total = sum(len(o) for o in outs)
 sizes = mh.global_sizes(local_total)
 
@@ -91,7 +91,7 @@ def test_two_process_distributed_compress():
     # round-robin split of 5 items: 3 + 2
     assert results[0]["n_local"] == 3 and results[1]["n_local"] == 2
     # both hosts observed the SAME global size vector, and it matches
-    # the per-host local totals — the DCN all-gather worked
+    # the per-host local totals — the cross-host all-gather worked
     g0, g1 = results[0]["global_sizes"], results[1]["global_sizes"]
     assert g0 == g1
     assert g0 == [results[0]["local_total"], results[1]["local_total"]]

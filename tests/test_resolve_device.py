@@ -149,9 +149,8 @@ def test_random_differential_many_streams():
 
 
 def test_agrees_with_pass1_tokens_end_to_end():
-    """Tokens from the real pass-1 kernel (interpret mode on CPU is
-    slow, so reuse the host reference encoder's token emission via
-    zlib-compressed input + the C resolver path as the oracle)."""
+    """Tokens from the real pass-1 kernel (Pallas interpreter on the
+    CPU) resolve on the device to the zlib oracle's bytes."""
     import zlib
 
     from libdeflate_rsx_tpu.ops.pallas.inflate_tokens import (
@@ -162,12 +161,10 @@ def test_agrees_with_pass1_tokens_end_to_end():
     base = bytes(rng.integers(97, 123, 3000).astype(np.uint8))
     datas = [zlib.compress(base * 3, 6)[2:-4],
              zlib.compress(bytes(5000), 1)[2:-4]]
-    # max_steps=2048 shares the suite's single pass-1 compile bucket
-    # (test_inflate_tokens.MAX_STEPS) instead of compiling a new one
-    jobs = decode_tokens_device(datas, s=1, max_steps=2048)
-    cols = [c for c, _ in jobs if c is not None]
-    if len(cols) < 2:
-        pytest.skip("pass-1 kernel unavailable on this backend")
+    # shares the suite's pass-1 compile (test_inflate_tokens.MAX_STEPS)
+    jobs = decode_tokens_device(datas, max_steps=16384, interpret=True)
+    cols = [c for c, _ in jobs]
+    assert all(c is not None for c in cols)
     T = max(len(c) for c in cols)
     cols = [col(list(c), T) for c in cols]
     outs = run_batch(cols, 16384)
@@ -176,8 +173,7 @@ def test_agrees_with_pass1_tokens_end_to_end():
 
 
 def test_inflate_device_fused_end_to_end():
-    """Both passes on device: pass-1 token kernel -> XLA resolver;
-    shares the suite's 2048-step pass-1 compile bucket."""
+    """Both passes on device: pass-1 token kernel -> XLA resolver."""
     import zlib
 
     from libdeflate_rsx_tpu.ops.pallas.inflate_tokens import (
@@ -192,8 +188,8 @@ def test_inflate_device_fused_end_to_end():
     ]
     streams = [zlib.compress(d, 6)[2:-4] for d in datas]
     streams.append(b"\xff\x07bad")          # invalid -> None
-    got = inflate_device_fused(streams, s=1, max_steps=2048,
-                               out_cap=2048)
+    got = inflate_device_fused(streams, max_steps=2048, out_cap=2048,
+                               interpret=True)
     assert got[:3] == datas
     assert got[3] is None
 
@@ -209,8 +205,8 @@ def test_batch_decompressor_device_resolve_routing():
     datas = [(rng.integers(97, 123, 30 + i, dtype=np.uint8).tobytes()
               * 10)[: 200 + 20 * i] for i in range(8)]
     streams = [zlib.compress(d, 6)[2:-4] for d in datas]
-    out = BatchDecompressor(use_device=True,
-                            resolve="device").decompress_batch(
+    out = BatchDecompressor(use_device=True, resolve="device",
+                            interpret=True).decompress_batch(
         streams, [600] * len(streams))
     assert out == datas
 
@@ -234,7 +230,8 @@ def test_sharded_decompressor_device_resolve():
     streams = [zlib.compress(d, 6)[2:-4] for d in datas]
     streams.append(b"\x99nope")
     dec = ShardedDecompressor(stream_mesh(), max_steps=1024,
-                              resolve="device", out_cap=2048)
+                              resolve="device", out_cap=2048,
+                              interpret=True)
     got = dec.decompress_batch(streams)
     assert got[:5] == datas
     assert got[5] is None

@@ -83,11 +83,6 @@ def _dribble_decode(comp: bytes, insz: int, outsz: int) -> bytes:
 
 @pytest.mark.parametrize("insz,outsz", [(1, 17), (7, 1000), (997, 65536)])
 def test_cinflater_dribble_protocol(insz, outsz):
-    pytest.importorskip("ctypes")
-    from libdeflate_rsx_tpu.native import get_lib
-
-    if get_lib() is None:
-        pytest.skip("no native library")
     data = (make_corpus("text", 30_000, seed=4)
             + make_corpus("random", 5_000, seed=5)
             + b"\x00" * 4_000)
@@ -98,10 +93,6 @@ def test_cinflater_dribble_protocol(insz, outsz):
 
 
 def test_cinflater_stored_blocks_and_bad_data():
-    from libdeflate_rsx_tpu.native import get_lib
-
-    if get_lib() is None:
-        pytest.skip("no native library")
     from libdeflate_rsx_tpu.native.host import CInflater
     from libdeflate_rsx_tpu.utils.errors import BadDataError
 
@@ -120,14 +111,12 @@ def test_sharded_decompressor_roundtrip():
 
     # small streams: this test pins the shard_map wiring + per-item
     # isolation, not kernel internals (test_inflate_tokens.py covers
-    # sizes/flush boundaries); interpret-mode cost is ~0.5 s/step on
-    # the CPU backend, so step count is the suite's wall-clock budget.
-    # One stream (400 B) still crosses a TOK_CHUNK=256 flush boundary.
+    # sizes and block kinds)
     datas = [make_corpus("pattern", 90 + 17 * i, seed=i)
              for i in range(8)] + [make_corpus("pattern", 400, seed=8)]
     streams = [zlib.compress(d, 6)[2:-4] for d in datas]
     streams.append(b"\x99garbage!")
-    dec = ShardedDecompressor(stream_mesh(), max_steps=1024)
+    dec = ShardedDecompressor(stream_mesh(), max_steps=1024, interpret=True)
     got = dec.decompress_batch(streams)
     assert got[:9] == datas
     assert got[9] is None
@@ -150,16 +139,16 @@ def test_compress_global_single_process():
 
 
 def test_batch_decompressor_device_routes_lockstep():
-    """BatchDecompressor(use_device=True) with >=8 items rides the
-    lockstep decoder (bucketed step budget) and stays byte-exact with
-    per-item isolation."""
+    """BatchDecompressor(use_device=True) rides the lockstep decoder
+    (bucketed step budget) and stays byte-exact with per-item
+    isolation."""
     from libdeflate_rsx_tpu.batch import BatchDecompressor
 
     datas = [make_corpus("pattern", 80 + 9 * i, seed=i)
              for i in range(8)]
     streams = [zlib.compress(d, 6)[2:-4] for d in datas]
     streams.append(b"\x01\x02junk")
-    out = BatchDecompressor(use_device=True).decompress_batch(
+    out = BatchDecompressor(use_device=True, interpret=True).decompress_batch(
         streams, [600 for _ in streams])
     assert out[:8] == datas
     assert out[8] is None
@@ -178,10 +167,6 @@ def test_dyn_tables_header_matches_tables():
     import numpy as np
 
     from libdeflate_rsx_tpu.native import dyn_tables_native
-
-    if dyn_tables_native(np.zeros(288, np.uint32) + 1,
-                         np.zeros(30, np.uint32), True) is None:
-        pytest.skip("no native library")
 
     order = [16, 17, 18, 0, 8, 7, 9, 6, 10, 5, 11, 4, 12, 3, 13, 2,
              14, 1, 15]

@@ -166,11 +166,9 @@ def test_nonseekable_decode_matches_and_is_native():
             break
         got += piece
     assert bytes(got) == data
-    # native engine selected when the library is present
-    from libdeflate_rsx_tpu.native import get_lib
-    if get_lib() is not None:
-        from libdeflate_rsx_tpu.native.host import CInflater
-        assert isinstance(dec._inflater, CInflater)
+    # the native engine serves non-seekable readers
+    from libdeflate_rsx_tpu.native.host import CInflater
+    assert isinstance(dec._inflater, CInflater)
 
 
 def test_nonseekable_truncated_raises():
